@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries go to ``_build/`` beside this file, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs when the package is
+hash of the source, the headers under ``csrc/`` (``*.cuh``) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is.  Nothing here runs when the package is
 imported: :func:`load` builds on the first kernel launch, and
 :func:`build_all` builds every library at once, one ``nvcc`` per source,
 all started together.
@@ -32,12 +33,14 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "cmetric_fold": {
         "gapp_tile_size": [],
+        "gapp_cumsum_tile_size": [],
         "gapp_fold": [_P, _P, _LL, _P, _F, _F, _F, _P, _P, _P, _P, _P, _I,
                       _P],
         "gapp_carry_cumsum": [_P, _P, _LL, _P, _F, _F, _P, _P, _P, _I, _P],
     },
     "tag_hist": {
-        "gapp_tag_hist": [_P, _P, _LL, _I, _P, _P, _I, _P],
+        "gapp_tag_hist": [_P, _P, _LL, _I, _P, _P, _P, _I, _P],
+        "gapp_tag_hist_path": [_I, _I],
     },
 }
 
@@ -55,8 +58,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where library ``name`` lives once built: keyed by source and flags."""
+    """Where library ``name`` lives once built: keyed by its source, the
+    shared headers and the flags."""
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -6,26 +6,45 @@
 //
 // The TPU kernels carry the running prefix from one grid step to the next
 // in VMEM scratch, which relies on the TPU running its grid in order.  CUDA
-// blocks run concurrently, so each scan here is a multi-pass tiled scan:
-// per-tile aggregates, one single-block scan of the aggregates, then a
-// per-tile pass that applies the tile's offset.  The fold's contributions
-// depend on the active count coming into a tile, so its integer count scan
-// completes before any contribution is formed.  The gcm prefix across tiles
-// is carried in float64: its error is that of one tile's float32 scan plus
-// the final rounding, not that of a 2^24-term float32 chain.
+// blocks run concurrently.
+//
+// gapp_fold is a multi-pass tiled scan: per-tile aggregates, one
+// single-block scan of the aggregates, then a per-tile pass that applies
+// the tile's offset.  The fold's contributions depend on the active count
+// coming into a tile, so its integer count scan completes before any
+// contribution is formed.
+//
+// gapp_carry_cumsum is one pass (Merrill & Garland's decoupled look-back):
+// a block takes its tile from an atomic ticket, scans it, publishes the
+// tile's aggregate, sums its predecessors' published aggregates or the
+// nearest inclusive prefix, and publishes its own inclusive prefix.  One
+// memset (the status words and the ticket) and one launch per call.
+//
+// Both carry the prefix across tiles in float64: the error is that of one
+// tile's float32 scan plus the final rounding, not that of a 2^24-term
+// float32 chain.
 //
 // Bound: memory.  fold must read dt (f32) and deltas (i32) and write n (i32)
 // and gcm (f32), 16 bytes per event; this design moves 28 (deltas are read
 // twice, n is written and read back).  carry_cumsum must move 12 bytes per
-// event (contrib, idle_contrib, g); this design moves 16.  Loads and stores
-// are 16 bytes per thread, neighbouring threads on neighbouring addresses.
+// event (contrib, idle_contrib, g) and moves 12, plus 16 bytes of status
+// per 8,192-event tile.  Loads and stores are 16 bytes per thread,
+// neighbouring threads on neighbouring addresses.
 //
 // Plain C interface for ctypes.  Every launch goes on the caller's stream;
 // each function returns the first launch error (cudaSuccess == 0).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using gapp::kFullMask;
+using gapp::lane_id;
+using gapp::load4;
+using gapp::store4;
+using gapp::warp_inclusive;
 
 constexpr int kThreads = 512;             // threads of a tile block
 constexpr int kItems = 4;                 // contiguous items per thread
@@ -41,18 +60,6 @@ struct Carry {
     return dev ? dev[i] : v[i];
   }
 };
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-template <typename T>
-__device__ __forceinline__ T warp_inclusive(T v) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T u = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane_id() >= o) v += u;
-  }
-  return v;
-}
 
 // Exclusive scan of one value per thread across the block (blockDim.x a
 // multiple of 32).  *total receives the block's sum.  smem holds 33 values;
@@ -80,32 +87,6 @@ __device__ T block_exclusive(T v, T* smem, T* total) {
   *total = smem[32];
   __syncthreads();
   return out;
-}
-
-template <typename V, typename T>
-__device__ __forceinline__ void load4(const T* p, int64_t base, int64_t e,
-                                      int vec, T fill, T (&x)[kItems]) {
-  if (vec && base + kItems <= e) {
-    const V v = *reinterpret_cast<const V*>(p + base);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) x[j] = base + j < e ? p[base + j] : fill;
-  }
-}
-
-template <typename V, typename T>
-__device__ __forceinline__ void store4(T* p, int64_t base, int64_t e, int vec,
-                                       const T (&x)[kItems]) {
-  if (vec && base + kItems <= e) {
-    V v;
-    v.x = x[0]; v.y = x[1]; v.z = x[2]; v.w = x[3];
-    *reinterpret_cast<V*>(p + base) = v;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kItems; ++j)
-      if (base + j < e) p[base + j] = x[j];
-  }
 }
 
 __device__ __forceinline__ int64_t item_base() {
@@ -234,61 +215,193 @@ fold_tile_gcm(const float* dt, const int* n_in, int64_t e, int vec,
   store4<float4>(gcm, base, e, vec, g);
 }
 
-// ---- carry_cumsum pass 1: per-tile sums of contrib and idle_contrib -------
-__global__ void __launch_bounds__(kThreads)
-cumsum_tile_sums(const float* contrib, const float* idle, int64_t e, int vec,
-                 double* tile_cm, double* tile_idle) {
-  __shared__ float sf[33];
-  const int64_t base = item_base();
-  float c[kItems], w[kItems];
-  load4<float4>(contrib, base, e, vec, 0.f, c);
-  load4<float4>(idle, base, e, vec, 0.f, w);
-  float s = 0.f, is = 0.f;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    s += c[j];
-    is += w[j];
-  }
-  float ctot, itot;
-  block_exclusive(s, sf, &ctot);
-  block_exclusive(is, sf, &itot);
-  if (threadIdx.x == 0) {
-    tile_cm[blockIdx.x] = ctot;
-    tile_idle[blockIdx.x] = itot;
-  }
+// ---- carry_cumsum: one pass, decoupled look-back ---------------------------
+//
+// A tile is 8,192 events: 16 warps of 512.  Lane l of a warp holds, for
+// each of its four float4 vectors j, the events warp_base + 128 j + 4 l + q,
+// so every load instruction of the warp reads 512 contiguous bytes.  The
+// warp scans its 512 events in float32 (four warp scans, carried), the
+// block adds the warps' totals, and one warp finds the tile's offset by
+// looking back over the status words of the tiles before it (Merrill &
+// Garland).
+constexpr int kCsThreads = 512;
+constexpr int kCsWarps = kCsThreads / 32;
+constexpr int kCsVecs = 4;                                // float4 per array
+constexpr int kCsWarpSpan = 32 * 4 * kCsVecs;             // 512 events
+constexpr int kCsTile = kCsWarps * kCsWarpSpan;           // 8,192 events
+
+// A status word is one 64-bit value that says what it holds: a float64
+// with its two lowest mantissa bits replaced by the state (a relative
+// change below 2^-50).  Each tile has two, one for contrib and one for
+// idle, at status[2 * tile] and status[2 * tile + 1]: first the tile's
+// aggregate, then its inclusive prefix, carry included.  A word is read
+// and written whole (relaxed 64-bit accesses at device scope), so a reader
+// needs no ordering against any other memory.  Zero is "not yet".
+enum : unsigned long long {
+  kStatusInvalid = 0,
+  kStatusAggregate = 1,
+  kStatusInclusive = 2,
+  kStatusMask = 3
+};
+
+__device__ __forceinline__ unsigned long long status_word(double v,
+                                                          unsigned long long s) {
+  return ((unsigned long long)__double_as_longlong(v) & ~kStatusMask) | s;
 }
 
-// ---- carry_cumsum pass 3: g, the inclusive prefix --------------------------
-__global__ void __launch_bounds__(kThreads)
-cumsum_tile_apply(const float* contrib, int64_t e, int vec,
-                  const double* tile_off, float* g) {
-  __shared__ float sf[33];
-  const int64_t base = item_base();
-  float c[kItems];
-  load4<float4>(contrib, base, e, vec, 0.f, c);
-  float incl[kItems];
-  float s = 0.f;
+__device__ __forceinline__ double status_value(unsigned long long w) {
+  return __longlong_as_double((long long)(w & ~kStatusMask));
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(w)
+               : "l"(p)
+               : "memory");
+  return w;
+}
+
+// Wait until the tiles before `tile` have published enough to sum every
+// event before it; returns the (contrib, idle) prefix, carry included (the
+// walk ends on an inclusive word, and tile 0's holds the carry).  Each
+// lane reads one predecessor's two words per step; the two sums end
+// independently.  Called by all 32 lanes of one warp.
+__device__ __forceinline__ void look_back(int64_t tile,
+                                          const unsigned long long* status,
+                                          double* pc, double* pi) {
+  const int lane = lane_id();
+  double acc[2] = {0.0, 0.0};
+  bool open[2] = {true, true};
+  for (int64_t pos = tile - 1; open[0] || open[1]; pos -= 32) {
+    const int64_t p = pos - lane;
+    unsigned long long w[2];
+    bool wait;
+    do {
+      wait = false;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    s += c[j];
-    incl[j] = s;
+      for (int x = 0; x < 2; ++x) {
+        w[x] = p >= 0 && open[x] ? load_status(status + 2 * p + x)
+                                 : kStatusInclusive;
+        wait |= (w[x] & kStatusMask) == kStatusInvalid;
+      }
+    } while (__any_sync(kFullMask, wait));
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (!open[x]) continue;  // the same for every lane
+      const unsigned incl = __ballot_sync(
+          kFullMask, (w[x] & kStatusMask) == kStatusInclusive && p >= 0);
+      const int stop = incl ? __ffs(incl) - 1 : 31;
+      double v = lane <= stop && p >= 0 ? status_value(w[x]) : 0.0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+      acc[x] += v;
+      open[x] = incl == 0;
+    }
   }
-  float total;
-  const float ex = block_exclusive(s, sf, &total);
-  const double off = tile_off[blockIdx.x];
-  float out[kItems];
+  *pc = acc[0];
+  *pi = acc[1];
+}
+
+__global__ void __launch_bounds__(kCsThreads)
+carry_cumsum_lookback(const float* contrib, const float* idle, int64_t e,
+                      int vec, Carry carry0, int64_t ntiles,
+                      unsigned long long* status, float* g, float* scalars) {
+  __shared__ int64_t s_tile;
+  __shared__ float s_warp_c[kCsWarps], s_warp_i[kCsWarps];
+  __shared__ double s_off;
+  const int lane = lane_id();
+  const int warp = threadIdx.x >> 5;
+  // Tiles are numbered in the order blocks start, so every tile a block
+  // waits for belongs to a block that is already running.
+  if (threadIdx.x == 0)
+    s_tile = atomicAdd(reinterpret_cast<unsigned*>(status + 2 * ntiles), 1u);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t tile_base = tile * kCsTile;
+  const int local = warp * kCsWarpSpan + lane * 4;
+
+  float c[kCsVecs][4], w[kCsVecs][4];
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) out[j] = (float)(off + (double)(ex + incl[j]));
-  store4<float4>(g, base, e, vec, out);
+  for (int j = 0; j < kCsVecs; ++j) {
+    load4<float4>(contrib, tile_base + local + 128 * j, e, vec, 0.f, c[j]);
+    load4<float4>(idle, tile_base + local + 128 * j, e, vec, 0.f, w[j]);
+  }
+
+  // In-warp inclusive scan of 512 events, float32; c becomes the prefix.
+  float run = 0.f, isum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCsVecs; ++j) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      s += c[j][q];
+      c[j][q] = s;
+      isum += w[j][q];
+    }
+    const float wi = warp_inclusive(s);
+    float ex = __shfl_up_sync(kFullMask, wi, 1);
+    if (lane == 0) ex = 0.f;
+    const float base = run + ex;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[j][q] += base;
+    run += __shfl_sync(kFullMask, wi, 31);
+  }
+  const float wis = warp_inclusive(isum);
+  if (lane == 31) {
+    s_warp_c[warp] = run;
+    s_warp_i[warp] = wis;
+  }
+  __syncthreads();
+  float woff = 0.f, tot = 0.f, itot = 0.f;
+#pragma unroll
+  for (int k = 0; k < kCsWarps; ++k) {
+    if (k == warp) woff = tot;
+    tot += s_warp_c[k];
+    itot += s_warp_i[k];
+  }
+
+  if (warp == 0) {
+    // Tile 0 starts from the carry; every inclusive word holds it.
+    double pc = (double)carry0[0], pi = (double)carry0[1];
+    if (tile > 0) {
+      if (lane == 0) {
+        store_status(status + 2 * tile, status_word(tot, kStatusAggregate));
+        store_status(status + 2 * tile + 1,
+                     status_word(itot, kStatusAggregate));
+      }
+      look_back(tile, status, &pc, &pi);
+    }
+    if (lane == 0) {
+      const double ic = pc + (double)tot, ii = pi + (double)itot;
+      store_status(status + 2 * tile, status_word(ic, kStatusInclusive));
+      store_status(status + 2 * tile + 1, status_word(ii, kStatusInclusive));
+      s_off = pc;
+      if (tile == ntiles - 1) {
+        scalars[0] = (float)ic;
+        scalars[1] = (float)ii;
+      }
+    }
+  }
+  __syncthreads();
+  const double off = s_off;
+#pragma unroll
+  for (int j = 0; j < kCsVecs; ++j) {
+    float out[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q] = (float)(off + (double)(woff + c[j][q]));
+    store4<float4>(g, tile_base + local + 128 * j, e, vec, out);
+  }
 }
 
 }  // namespace
-
-#define GAPP_LAUNCH_CHECK()                      \
-  do {                                           \
-    const cudaError_t err_ = cudaGetLastError(); \
-    if (err_ != cudaSuccess) return (int)err_;   \
-  } while (0)
 
 extern "C" {
 
@@ -331,29 +444,26 @@ int gapp_fold(const float* dt, const int* deltas, long long e,
   return 0;
 }
 
+// Events per carry_cumsum tile: the wrapper sizes its scratch with it.
+int gapp_cumsum_tile_size(void) { return kCsTile; }
+
 // g[i] = gcm0 + sum(contrib[:i+1]); scalars = (g[-1], idle0 +
 // sum(idle_contrib)).  The carry (gcm0, idle0) is float[2] on the device at
-// carry_dev, or (g0, i0) when carry_dev is null.  Scratch: dscratch
-// double[3*ntiles].
+// carry_dev, or (g0, i0) when carry_dev is null.  Scratch: status
+// uint64[2 * ntiles + 1] (two status words a tile and the tile ticket),
+// zeroed here on the stream.  One memset and one kernel launch.
 int gapp_carry_cumsum(const float* contrib, const float* idle_contrib,
                       long long e, const float* carry_dev, float g0, float i0,
-                      float* g, float* scalars, double* dscratch, int vec,
-                      void* stream) {
+                      float* g, float* scalars, unsigned long long* status,
+                      int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Carry carry0 = {carry_dev, {g0, i0, 0.f}};
-  const long long ntiles = (e + kTile - 1) / kTile;
-  const unsigned grid = (unsigned)ntiles;
-  double* tile_cm = dscratch;
-  double* tile_idle = dscratch + ntiles;
-  double* tile_off = dscratch + 2 * ntiles;
-  cumsum_tile_sums<<<grid, kThreads, 0, s>>>(contrib, idle_contrib, e, vec,
-                                             tile_cm, tile_idle);
-  GAPP_LAUNCH_CHECK();
-  scan_tile_sums<<<1, kScanThreads, 0, s>>>(tile_cm, tile_idle, ntiles,
-                                            carry0, 0, 1, tile_off,
-                                            scalars + 0, scalars + 1);
-  GAPP_LAUNCH_CHECK();
-  cumsum_tile_apply<<<grid, kThreads, 0, s>>>(contrib, e, vec, tile_off, g);
+  const long long ntiles = (e + kCsTile - 1) / kCsTile;
+  const cudaError_t err = cudaMemsetAsync(
+      status, 0, sizeof(unsigned long long) * (size_t)(2 * ntiles + 1), s);
+  if (err != cudaSuccess) return (int)err;
+  carry_cumsum_lookback<<<(unsigned)ntiles, kCsThreads, 0, s>>>(
+      contrib, idle_contrib, e, vec, carry0, ntiles, status, g, scalars);
   GAPP_LAUNCH_CHECK();
   return 0;
 }

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Ragged shapes (a partial last tile, one event, empty input), a carry, bins
-on both sides of the shared-memory limit, and inputs that are not 16-byte
-aligned.  Tolerances: ``n`` and counts exact; float prefixes rtol 1e-5
+Ragged shapes (a partial last tile, one event, empty input), many-tile
+prefixes with a carry by value and one on the device, back-to-back calls
+(stale look-back state), bins on both sides of every threshold of the
+histogram's paths and each path reached through K, skewed and
+all-in-one-bin keys, and inputs that are not 16-byte aligned.  Tolerances: ``n`` and counts exact; float prefixes rtol 1e-5
 (both are float32 scans, summed in another order); weighted histogram
 rtol 1e-4 (float atomics in a varying order).  Each test needs a CUDA card
 and skips without one; run them there with
@@ -54,37 +56,156 @@ def test_cuda_fold_matches_plain(cuda_device, e):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("e", [1, 2049, 100_003])
-def test_cuda_carry_cumsum_matches_plain(cuda_device, e, offset):
-    """``offset`` 1 hands over views that are not 16-byte aligned."""
-    rng = np.random.default_rng(e)
+def _cumsum_inputs(e, seed, dev, offset=0):
+    rng = np.random.default_rng(seed)
     c = torch.from_numpy(rng.random(e + 1).astype(np.float32)).to(
-        cuda_device)[offset:offset + e]
+        dev)[offset:offset + e]
     i = torch.from_numpy(rng.random(e + 1).astype(np.float32)).to(
-        cuda_device)[offset:offset + e]
-    gk, ek, ik = fold_k.carry_cumsum(c, i, (0.25, 0.5))
+        dev)[offset:offset + e]
+    return c, i
+
+
+@pytest.mark.parametrize("carry_on", ["host", "device"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("e", [1, 2049, 100_003, 1 << 20, (1 << 22) + 3])
+def test_cuda_carry_cumsum_matches_plain(cuda_device, e, offset, carry_on):
+    """``offset`` 1 hands over views that are not 16-byte aligned;
+    ``carry_on`` "device" passes the carry as 0-d tensors on the card, as
+    a carry returned by an earlier call is; 2^20 and 2^22 + 3 events span
+    128 and 513 look-back tiles."""
+    c, i = _cumsum_inputs(e, e, cuda_device, offset)
+    carry = (0.25, 0.5)
+    if carry_on == "device":
+        carry = tuple(torch.tensor(x, device=cuda_device) for x in carry)
+    before = fold_k.LAUNCHES["carry_cumsum"]
+    gk, ek, ik = fold_k.carry_cumsum(c, i, carry)
     gp, ep, ip = ref.carry_cumsum_ref(c, i, (0.25, 0.5))
+    assert fold_k.LAUNCHES["carry_cumsum"] == before + 1
     np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-5)
     np.testing.assert_allclose(float(ek), float(ep), rtol=1e-5)
     np.testing.assert_allclose(float(ik), float(ip), rtol=1e-5)
 
 
+def test_cuda_carry_cumsum_back_to_back(cuda_device):
+    """50 calls queued on one stream without a synchronise, each with its
+    own carry: a status word left over from the call before would hand a
+    tile a stale prefix."""
+    e = (1 << 20) + 5
+    c, i = _cumsum_inputs(e, 7, cuda_device)
+    outs = [fold_k.carry_cumsum(c, i, (float(r), 0.5 * r)) for r in range(50)]
+    for r, (gk, ek, ik) in enumerate(outs):
+        gp, ep, ip = ref.carry_cumsum_ref(c, i, (float(r), 0.5 * r))
+        np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(),
+                                   rtol=1e-5, err_msg=f"call {r}")
+        np.testing.assert_allclose(float(ek), float(ep), rtol=1e-5)
+        np.testing.assert_allclose(float(ik), float(ip), rtol=1e-5)
+
+
+def test_cuda_carry_cumsum_error_vs_float64(cuda_device):
+    """Against a float64 prefix the kernel's error is no worse than the
+    plain float32 ``torch.cumsum``'s (the in-tile scan is float32, the
+    carry across tiles float64)."""
+    e = (1 << 22) + 3
+    c, i = _cumsum_inputs(e, 3, cuda_device)
+    gk, _, ik = fold_k.carry_cumsum(c, i, (0.125, 0.0625))
+    gp, _, _ = ref.carry_cumsum_ref(c, i, (0.125, 0.0625))
+    g64 = float(np.float32(0.125)) + torch.cumsum(c.double(), 0)
+    err_k = float((gk.double() - g64).abs().max())
+    err_p = float((gp.double() - g64).abs().max())
+    assert err_k <= err_p, (err_k, err_p)
+    i64 = float(np.float32(0.0625)) + float(i.double().sum())
+    assert abs(float(ik) - i64) <= 1e-6 * i64
+
+
+# Bin counts on both sides of each threshold of the path chosen by K
+# (csrc/tag_hist.cu, auto_path): 200 KB of shared memory for the shared
+# path at 8 bytes a bin with weights and 4 without, then for counts alone
+# a cluster of two blocks of at most 200 KB each.
+THRESHOLD_PAIRS = [(25_600, 25_601), (51_200, 51_201), (102_400, 102_401)]
+
+
+def _check_hist(tags, w, k):
+    ck, wk = hist_k.hist(tags, w, num_bins=k)
+    cp, wp = ref.hist_ref(tags, w, k)
+    assert torch.equal(ck, cp)
+    if w is None:
+        assert torch.equal(wk, ck.float())
+    np.testing.assert_allclose(wk.cpu().numpy(), wp.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    return hist_k.bins_path(k, w is not None)
+
+
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("s,k", [(0, 3), (1, 1), (1000, 100),
                                  (300_001, 6144), (300_001, 6145),
-                                 (100_000, 1 << 20)])
+                                 (100_000, 1 << 20),
+                                 *[(200_003, k) for pair in THRESHOLD_PAIRS
+                                   for k in pair]])
 def test_cuda_hist_matches_plain(cuda_device, s, k, weighted):
     rng = np.random.default_rng(s + k)
     tags = torch.from_numpy(rng.integers(-3, k + 3, s).astype(np.int32)).to(
         cuda_device)
     w = (torch.from_numpy(rng.random(s, dtype=np.float32)).to(cuda_device)
          if weighted else None)
-    ck, wk = hist_k.hist(tags, w, num_bins=k)
-    cp, wp = ref.hist_ref(tags, w, k)
-    assert torch.equal(ck, cp)
-    np.testing.assert_allclose(wk.cpu().numpy(), wp.cpu().numpy(), rtol=1e-4,
-                               atol=1e-5)
+    _check_hist(tags, w, k)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_cuda_hist_path_changes_at_each_threshold(cuda_device, weighted):
+    tags = torch.arange(-2, 110_000, dtype=torch.int32, device=cuda_device)
+    w = torch.ones(tags.shape[0], device=cuda_device) if weighted else None
+    ks = [1000] + [k for pair in THRESHOLD_PAIRS for k in pair] + [1 << 20]
+    paths = [_check_hist(tags, w, k) for k in ks]
+    if weighted:
+        assert paths == ["shared"] * 2 + ["global"] * 6
+    else:
+        assert paths == (["shared"] * 4 + ["cluster"] * 2
+                         + ["global"] * 2)
+
+
+# A K that puts the bins in each place (csrc/tag_hist.cu, bins_path); a
+# cluster holds counts alone.
+PATH_BINS = {("shared", True): 5_000, ("shared", False): 5_000,
+             ("cluster", False): 60_000, ("global", True): 60_000,
+             ("global", False): 200_000}
+
+
+@pytest.mark.parametrize("path,weighted", sorted(PATH_BINS))
+@pytest.mark.parametrize("pattern", ["one-bin", "32-distinct", "skewed"])
+def test_cuda_hist_warp_aggregation(cuda_device, path, pattern, weighted):
+    """Every sample in one bin, 32 distinct keys in every warp, and the
+    detector's kind of skew (90% of samples in 64 bins), through each
+    place the bins can live; counts exact, weighted sums rtol 1e-4."""
+    s, k = 300_007, PATH_BINS[path, weighted]
+    rng = np.random.default_rng(11)
+    if pattern == "one-bin":
+        tags = np.full(s, 17, np.int32)
+    elif pattern == "32-distinct":
+        tags = (((np.arange(s) // 4) % 32) * 131 + np.arange(s) // 4096) % k
+    else:
+        hot = rng.integers(0, k, 64)
+        tags = np.where(rng.random(s) < 0.9, hot[rng.integers(0, 64, s)],
+                        rng.integers(-1, k + 1, s))
+    t = torch.from_numpy(tags.astype(np.int32)).to(cuda_device)
+    w = (torch.from_numpy(rng.random(s, dtype=np.float32)).to(cuda_device)
+         if weighted else None)
+    assert _check_hist(t, w, k) == path
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("k", [4, 200_000])
+def test_cuda_hist_counts_stay_exact_past_2_24_samples(cuda_device, k,
+                                                        weighted):
+    """Past 2^24 samples the global records count in int32 (a float32
+    count stops growing at 2^24 in a bin that holds them all); K = 4 keeps
+    the bins in shared memory, K = 200,000 in global memory."""
+    s = (1 << 24) + 100
+    tags = torch.full((s,), 3, dtype=torch.int32, device=cuda_device)
+    tags[:50] = 1
+    w = torch.ones(s, device=cuda_device) if weighted else None
+    counts, _ = hist_k.hist(tags, w, num_bins=k)
+    assert counts[:4].tolist() == [0, 50, 0, s - 50]
+    assert int(counts[4:].sum()) == 0
 
 
 @pytest.mark.parametrize("chunk_events", [None, 777])

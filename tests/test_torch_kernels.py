@@ -125,7 +125,7 @@ def test_hist_default_weights():
 @pytest.mark.parametrize("call", ["fold-dtype", "fold-2d", "fold-strided",
                                   "fold-shape", "fold-empty", "fold-meta",
                                   "cumsum-dtype", "hist-dtype", "hist-bins",
-                                  "hist-weights"])
+                                  "hist-weights", "hist-weight-dtype"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     f = torch.zeros(8, dtype=torch.float32)
     i = torch.zeros(8, dtype=torch.int32)
@@ -140,6 +140,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call):
         "hist-dtype": lambda: hist_k.hist(i.long(), num_bins=3),
         "hist-bins": lambda: hist_k.hist(i, num_bins=0),
         "hist-weights": lambda: hist_k.hist(i, f[:4], num_bins=3),
+        "hist-weight-dtype": lambda: hist_k.hist(i, i, num_bins=3),
     }[call]
     with pytest.raises((TypeError, ValueError)):
         bad()
@@ -167,7 +168,28 @@ def test_build_targets_sm90a_and_keys_libraries_by_source(tmp_path,
     before = build.library_path("tag_hist")
     src = tmp_path / "csrc"
     src.mkdir()
-    (src / "tag_hist.cu").write_text("// edited\n")
+    for f in build.CSRC.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", src)
-    assert build.library_path("tag_hist") != before
-    assert build.library_path("tag_hist").parent == build.BUILD_DIR
+    assert build.library_path("tag_hist") == before
+    (src / "tag_hist.cu").write_text("// edited\n")
+    edited = build.library_path("tag_hist")
+    assert edited != before and edited.parent == build.BUILD_DIR
+    # a shared header is part of every library's key
+    fold_before = build.library_path("cmetric_fold")
+    (src / "common.cuh").write_text("// edited header\n")
+    assert build.library_path("cmetric_fold") != fold_before
+    assert build.library_path("tag_hist") != edited
+
+
+def test_kernel_sources_match_the_build_tables():
+    """Every header a source includes is one ``library_path`` hashes, and
+    every C function a source exports has its signature declared."""
+    import re
+    headers = {p.name for p in build.CSRC.glob("*.cuh")}
+    for name, source in build.SOURCES.items():
+        text = (build.CSRC / source).read_text()
+        local = set(re.findall(r'#include "([^"]+)"', text))
+        assert local <= headers, (source, local - headers)
+        exported = set(re.findall(r"^int (gapp_\w+)\(", text, re.M))
+        assert exported == set(build.SIGNATURES[name]), source
