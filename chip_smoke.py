@@ -14,8 +14,10 @@ Phases (any failure exits non-zero):
    run the injected call path ``INJECTED_PATH``.
 2. Each CUDA kernel against its plain PyTorch version, on the card, with
    CUDA-event times beside the kernel's byte bound, the plain version's
-   time, one PyTorch call that computes part of the function (``library``)
-   and the like-for-like composite of PyTorch calls (``composite``):
+   time, one PyTorch call that computes part of the function (``library``;
+   for fold the two ``torch.cumsum`` calls alone, int32 deltas and f32
+   contributions, without the division, the carry or the idle sum) and the
+   like-for-like composite of PyTorch calls (``composite``):
    fold at E = 2^24; carry_cumsum at E = 2^24 and at one main-path chunk
    (2^20 events, the carry on the device);
    tag_hist at S = 2^24 with uniform tags over K = 3,300 and K = 2^20 and
@@ -325,11 +327,21 @@ def check_fold(rows, dt, deltas, log, e):
           "fold: idle")
     check(float(cnt_k) == float(cnt_p) == float(log.deltas.sum()),
           "fold: final count")
+    contrib = torch.where(n_k > 0, dt / n_k.clamp(min=1).float(),
+                          torch.zeros_like(dt))
+
+    def kernel():
+        return fold_k.fold(dt, deltas)
+
+    def library():
+        return (torch.cumsum(deltas, 0, dtype=torch.int32),
+                torch.cumsum(contrib, 0))
+
     rows.add("fold", "cmetric_fold.fold", FOLD_SRC,
              "src/repro/kernels/cmetric_fold.py:52", f"E={e}", diff,
-             time_ms(lambda: fold_k.fold(dt, deltas)),
-             time_ms(lambda: ref.fold_ref(dt, deltas)),
-             16.0 * e, 4.0 * e, None, None)
+             time_ms(kernel), time_ms(lambda: ref.fold_ref(dt, deltas)),
+             16.0 * e, 4.0 * e, time_ms(library), None,
+             graph_ms=graph_ms(kernel), library_graph_ms=graph_ms(library))
     return n_k
 
 

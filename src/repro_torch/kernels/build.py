@@ -33,9 +33,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "cmetric_fold": {
         "gapp_tile_size": [],
-        "gapp_cumsum_tile_size": [],
-        "gapp_fold": [_P, _P, _LL, _P, _F, _F, _F, _P, _P, _P, _P, _P, _I,
-                      _P],
+        "gapp_fold": [_P, _P, _LL, _P, _F, _F, _F, _P, _P, _P, _P, _I, _P],
         "gapp_carry_cumsum": [_P, _P, _LL, _P, _F, _F, _P, _P, _P, _I, _P],
     },
     "tag_hist": {

@@ -15,22 +15,21 @@ two coupled prefix scans over the event stream (paper §4.1).
 
 Design (``csrc/cmetric_fold.cu``): the TPU kernels carry the prefix from
 one grid step to the next in VMEM scratch, relying on the TPU's sequential
-grid; CUDA blocks run concurrently.  The fold is a multi-pass tiled scan of
-2048-event tiles in five launches: per-tile delta sums, a single-block scan
-of the tile counts (seeded by the carried count), a per-tile pass that
-writes ``n`` and sums the tile's contributions and idle time, a
-single-block float64 scan of those sums (seeded by the carried gcm and
-idle), and a per-tile pass that writes ``gcm``.  The count is int32
-throughout (the TPU kept it in f32).  ``carry_cumsum`` is one pass over
-8192-event tiles with a decoupled look-back: each block takes its tile
-from an atomic ticket, scans it in float32, publishes the tile's sums and
-then its float64 inclusive prefixes in self-describing 64-bit status
-words, and finds its own offset from its predecessors' words.  The status
-words are zeroed by a memset on the stream before each launch.
+grid; CUDA blocks run concurrently.  Both wrappers are one memset and one
+launch: a single pass over 8192-event tiles with a decoupled look-back.
+Each block takes its tile from an atomic ticket, scans it, publishes the
+tile's sums and then its inclusive prefixes in self-describing 64-bit
+status words, and finds its own offset from its predecessors' words.  The
+fold chains two look-backs: it scans the deltas (int32; the TPU kept the
+count in f32), publishes the tile's count at once, looks back for the
+count coming into the tile, forms ``n`` and the contributions, then scans
+those in float32 and looks back over the float64 (contrib, idle) words;
+its tile waits out the look-backs in shared memory, not in registers.
+The status words are zeroed by a memset on the stream before each launch.
 
 Bound: memory.  ``fold`` must move 16 bytes per event (dt, deltas in; n,
 gcm out), ``carry_cumsum`` 12 (contrib, idle_contrib in; g out).  These
-designs move 28 and 12.
+designs move 16 and 12, plus 24 and 16 bytes of status per tile.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and counts its launches in
@@ -125,21 +124,19 @@ def fold(dt, deltas, carry=None):
     if dev.type == "cpu":
         return ref.fold_ref(dt, deltas, carry)
     lib = build.load("cmetric_fold")
-    ntiles = _tiles(lib, e)
     n = torch.empty(e, dtype=torch.int32, device=dev)
     gcm = torch.empty(e, dtype=torch.float32, device=dev)
     scalars = torch.empty(3, dtype=torch.float32, device=dev)
-    iscratch = torch.empty(2 * ntiles, dtype=torch.int32, device=dev)
-    dscratch = torch.empty(3 * ntiles, dtype=torch.float64, device=dev)
+    status = torch.empty(3 * _tiles(lib, e) + 1, dtype=torch.int64,
+                         device=dev)
     carry_dev, carry_vals = carry_args(carry, 3, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gapp_fold(dt.data_ptr(), deltas.data_ptr(), e,
                            None if carry_dev is None else carry_dev.data_ptr(),
                            *carry_vals, n.data_ptr(), gcm.data_ptr(),
-                           scalars.data_ptr(), iscratch.data_ptr(),
-                           dscratch.data_ptr(), vec_ok(dt, deltas, n, gcm),
-                           stream)
+                           scalars.data_ptr(), status.data_ptr(),
+                           vec_ok(dt, deltas, n, gcm), stream)
     raise_on_error(rc, "gapp_fold")
     LAUNCHES["fold"] += 1
     return n, gcm, scalars[0], scalars[1], scalars[2]
@@ -165,11 +162,10 @@ def carry_cumsum(contrib, idle_contrib, carry):
     if dev.type == "cpu":
         return ref.carry_cumsum_ref(contrib, idle_contrib, carry)
     lib = build.load("cmetric_fold")
-    tile = lib.gapp_cumsum_tile_size()
-    ntiles = (e + tile - 1) // tile
     g = torch.empty(e, dtype=torch.float32, device=dev)
     scalars = torch.empty(2, dtype=torch.float32, device=dev)
-    status = torch.empty(2 * ntiles + 1, dtype=torch.int64, device=dev)
+    status = torch.empty(2 * _tiles(lib, e) + 1, dtype=torch.int64,
+                         device=dev)
     carry_dev, carry_vals = carry_args(carry, 2, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -6,35 +6,40 @@
 //
 // The TPU kernels carry the running prefix from one grid step to the next
 // in VMEM scratch, which relies on the TPU running its grid in order.  CUDA
-// blocks run concurrently.
+// blocks run concurrently, so both kernels here are one pass with Merrill &
+// Garland's decoupled look-back: a block takes its tile from an atomic
+// ticket, scans it, publishes the tile's aggregate, sums its predecessors'
+// published aggregates or the nearest inclusive prefix, and publishes its
+// own inclusive prefix.  One memset (the status words and the ticket) and
+// one launch per call.
 //
-// gapp_fold is a multi-pass tiled scan: per-tile aggregates, one
-// single-block scan of the aggregates, then a per-tile pass that applies
-// the tile's offset.  The fold's contributions depend on the active count
-// coming into a tile, so its integer count scan completes before any
-// contribution is formed.
+// The fold chains two look-backs: a tile's contributions dt / n need the
+// active count coming into the tile.  It scans its deltas, publishes the
+// tile's count aggregate at once, looks back over the count words, forms
+// n and the contributions, and only then scans and looks back over the
+// (contrib, idle) words.  Publishing the count aggregate before any
+// look-back keeps the count chain short for the tiles behind it.
 //
-// gapp_carry_cumsum is one pass (Merrill & Garland's decoupled look-back):
-// a block takes its tile from an atomic ticket, scans it, publishes the
-// tile's aggregate, sums its predecessors' published aggregates or the
-// nearest inclusive prefix, and publishes its own inclusive prefix.  One
-// memset (the status words and the ticket) and one launch per call.
-//
-// Both carry the prefix across tiles in float64: the error is that of one
-// tile's float32 scan plus the final rounding, not that of a 2^24-term
-// float32 chain.
+// The count is int32 (the TPU kept it in f32).  Sums are float32 within a
+// tile (a warp's 512 events, then the tile's 16 warps) and float64 across
+// tiles: the error is that of one 8,192-event float32 scan plus the final
+// rounding, not that of a 2^24-term float32 chain.
 //
 // Bound: memory.  fold must read dt (f32) and deltas (i32) and write n (i32)
-// and gcm (f32), 16 bytes per event; this design moves 28 (deltas are read
-// twice, n is written and read back).  carry_cumsum must move 12 bytes per
-// event (contrib, idle_contrib, g) and moves 12, plus 16 bytes of status
-// per 8,192-event tile.  Loads and stores are 16 bytes per thread,
-// neighbouring threads on neighbouring addresses.
+// and gcm (f32), 16 bytes per event, and moves 16, plus 24 bytes of status
+// per 8,192-event tile.  carry_cumsum must move 12 bytes per event
+// (contrib, idle_contrib, g) and moves 12, plus 16 bytes of status per
+// tile.  Loads and stores are 16 bytes per thread, neighbouring threads on
+// neighbouring addresses.  The fold's tile waits out its look-backs in
+// shared memory rather than in registers, which lets three blocks share an
+// SM instead of two.
 //
 // Plain C interface for ctypes.  Every launch goes on the caller's stream;
 // each function returns the first launch error (cudaSuccess == 0).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -46,10 +51,14 @@ using gapp::load4;
 using gapp::store4;
 using gapp::warp_inclusive;
 
-constexpr int kThreads = 512;             // threads of a tile block
-constexpr int kItems = 4;                 // contiguous items per thread
-constexpr int kTile = kThreads * kItems;  // events per tile
-constexpr int kScanThreads = 1024;        // single-block scan of tile sums
+// A tile is 8,192 events: 16 warps of 512.  Lane l of a warp holds, for
+// each of its four 16-byte vectors j, the events warp_base + 128 j + 4 l +
+// q, so every load instruction of the warp reads 512 contiguous bytes.
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVecs = 4;                          // 16-byte vectors per array
+constexpr int kWarpSpan = 32 * 4 * kVecs;         // 512 events
+constexpr int kTile = kWarps * kWarpSpan;         // 8,192 events
 
 // The carried scan state: read from the device when dev is set (a carry
 // returned by an earlier call stays there), else passed by value.
@@ -61,182 +70,50 @@ struct Carry {
   }
 };
 
-// Exclusive scan of one value per thread across the block (blockDim.x a
-// multiple of 32).  *total receives the block's sum.  smem holds 33 values;
-// the trailing barrier lets the caller reuse it at once.
-template <typename T>
-__device__ T block_exclusive(T v, T* smem, T* total) {
-  const int lane = lane_id();
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const T incl = warp_inclusive(v);
-  T excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = T(0);
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const T w = lane < nwarps ? smem[lane] : T(0);
-    const T wi = warp_inclusive(w);
-    T we = __shfl_up_sync(0xffffffffu, wi, 1);
-    if (lane == 0) we = T(0);
-    smem[lane] = we;
-    if (lane == 31) smem[32] = wi;
-  }
-  __syncthreads();
-  const T out = smem[warp] + excl;
-  *total = smem[32];
-  __syncthreads();
-  return out;
-}
-
-__device__ __forceinline__ int64_t item_base() {
-  return (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-}
-
 // The interval's share of global_cm: dt / n while workers are active.
 __device__ __forceinline__ float contrib_of(float dt, int n) {
   return n > 0 ? dt / (float)n : 0.f;
 }
 
-// ---- fold pass 1: per-tile sum of the deltas ------------------------------
-__global__ void __launch_bounds__(kThreads)
-fold_count_tiles(const int* deltas, int64_t e, int vec, int* tile_count) {
-  __shared__ int smem[33];
-  int d[kItems];
-  load4<int4>(deltas, item_base(), e, vec, 0, d);
-  int total;
-  block_exclusive(d[0] + d[1] + d[2] + d[3], smem, &total);
-  if (threadIdx.x == 0) tile_count[blockIdx.x] = total;
+// The block's tile: tiles are numbered in the order blocks start, so every
+// tile a block waits for belongs to a block that is already running.
+__device__ __forceinline__ int64_t take_tile(unsigned long long* ticket) {
+  __shared__ int64_t s_tile;
+  if (threadIdx.x == 0)
+    s_tile = atomicAdd(reinterpret_cast<unsigned*>(ticket), 1u);
+  __syncthreads();
+  return s_tile;
 }
 
-// ---- fold pass 2: exclusive scan of the tile counts, seeded by the carry --
-__global__ void __launch_bounds__(kScanThreads)
-fold_scan_counts(const int* tile_count, int64_t ntiles, Carry carry0,
-                 int* tile_count_off, float* count_out) {
-  __shared__ int smem[33];
-  int carry = __float2int_rz(carry0[0]);
-  for (int64_t lo = 0; lo < ntiles; lo += blockDim.x) {
-    const int64_t i = lo + threadIdx.x;
-    int total;
-    const int ex = block_exclusive(i < ntiles ? tile_count[i] : 0, smem,
-                                   &total);
-    if (i < ntiles) tile_count_off[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *count_out = (float)carry;
-}
-
-// ---- fold pass 3: n, and each tile's contribution and idle sums -----------
-__global__ void __launch_bounds__(kThreads)
-fold_tile_n(const float* dt, const int* deltas, int64_t e, int vec,
-            const int* tile_count_off, int* n_out, double* tile_cm,
-            double* tile_idle) {
-  __shared__ int si[33];
-  __shared__ float sf[33];
-  const int64_t base = item_base();
-  int d[kItems];
-  float t[kItems];
-  load4<int4>(deltas, base, e, vec, 0, d);
-  load4<float4>(dt, base, e, vec, 0.f, t);
-  int run[kItems];
-  int s = 0;
+// One vector of a warp's scan: x (this lane's four events of vector j of
+// the layout above) becomes its prefix within the warp, inclusive or
+// exclusive, and *run (the warp's sum over the vectors before j) grows by
+// the vector's warp total.
+template <bool kExclusive, typename T>
+__device__ __forceinline__ void warp_scan_step(T (&x)[4], T* run) {
+  T s = T(0);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    s += d[j];
-    run[j] = s;
+  for (int q = 0; q < 4; ++q) {
+    const T v = x[q];
+    x[q] = kExclusive ? s : s + v;
+    s += v;
   }
-  int itotal;
-  const int off = tile_count_off[blockIdx.x] + block_exclusive(s, si, &itotal);
-  int n[kItems];
-  float csum = 0.f, isum = 0.f;
+  const T wi = warp_inclusive(s);
+  T ex = __shfl_up_sync(kFullMask, wi, 1);
+  if (lane_id() == 0) ex = T(0);
+  const T base = *run + ex;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    n[j] = off + run[j];
-    csum += contrib_of(t[j], n[j]);
-    if (n[j] <= 0 && t[j] > 0.f) isum += t[j];
-  }
-  store4<int4>(n_out, base, e, vec, n);
-  float ctot, itot;
-  block_exclusive(csum, sf, &ctot);
-  block_exclusive(isum, sf, &itot);
-  if (threadIdx.x == 0) {
-    tile_cm[blockIdx.x] = ctot;
-    tile_idle[blockIdx.x] = itot;
-  }
+  for (int q = 0; q < 4; ++q) x[q] += base;
+  *run += __shfl_sync(kFullMask, wi, 31);
 }
 
-// ---- shared: float64 exclusive scan of the tile sums, plus the idle total -
-__global__ void __launch_bounds__(kScanThreads)
-scan_tile_sums(const double* tile_cm, const double* tile_idle, int64_t ntiles,
-               Carry carry0, int gcm_at, int idle_at, double* tile_off,
-               float* gcm_out, float* idle_out) {
-  __shared__ double smem[33];
-  double carry = (double)carry0[gcm_at];
-  double idle = 0.0;
-  for (int64_t lo = 0; lo < ntiles; lo += blockDim.x) {
-    const int64_t i = lo + threadIdx.x;
-    double total;
-    const double ex = block_exclusive(i < ntiles ? tile_cm[i] : 0.0, smem,
-                                      &total);
-    if (i < ntiles) tile_off[i] = carry + ex;
-    carry += total;
-    block_exclusive(i < ntiles ? tile_idle[i] : 0.0, smem, &total);
-    idle += total;
-  }
-  if (threadIdx.x == 0) {
-    *gcm_out = (float)carry;
-    *idle_out = (float)((double)carry0[idle_at] + idle);
-  }
-}
-
-// ---- fold pass 5: gcm, the exclusive prefix of the contributions ----------
-__global__ void __launch_bounds__(kThreads)
-fold_tile_gcm(const float* dt, const int* n_in, int64_t e, int vec,
-              const double* tile_off, float* gcm) {
-  __shared__ float sf[33];
-  const int64_t base = item_base();
-  float t[kItems];
-  int n[kItems];
-  load4<float4>(dt, base, e, vec, 0.f, t);
-  load4<int4>(n_in, base, e, vec, 0, n);
-  float pre[kItems];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    pre[j] = s;
-    s += contrib_of(t[j], n[j]);
-  }
-  float total;
-  const float ex = block_exclusive(s, sf, &total);
-  const double off = tile_off[blockIdx.x];
-  float g[kItems];
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) g[j] = (float)(off + (double)(ex + pre[j]));
-  store4<float4>(gcm, base, e, vec, g);
-}
-
-// ---- carry_cumsum: one pass, decoupled look-back ---------------------------
-//
-// A tile is 8,192 events: 16 warps of 512.  Lane l of a warp holds, for
-// each of its four float4 vectors j, the events warp_base + 128 j + 4 l + q,
-// so every load instruction of the warp reads 512 contiguous bytes.  The
-// warp scans its 512 events in float32 (four warp scans, carried), the
-// block adds the warps' totals, and one warp finds the tile's offset by
-// looking back over the status words of the tiles before it (Merrill &
-// Garland).
-constexpr int kCsThreads = 512;
-constexpr int kCsWarps = kCsThreads / 32;
-constexpr int kCsVecs = 4;                                // float4 per array
-constexpr int kCsWarpSpan = 32 * 4 * kCsVecs;             // 512 events
-constexpr int kCsTile = kCsWarps * kCsWarpSpan;           // 8,192 events
-
-// A status word is one 64-bit value that says what it holds: a float64
-// with its two lowest mantissa bits replaced by the state (a relative
-// change below 2^-50).  Each tile has two, one for contrib and one for
-// idle, at status[2 * tile] and status[2 * tile + 1]: first the tile's
-// aggregate, then its inclusive prefix, carry included.  A word is read
-// and written whole (relaxed 64-bit accesses at device scope), so a reader
-// needs no ordering against any other memory.  Zero is "not yet".
+// A status word is one 64-bit value that says what it holds: first the
+// tile's aggregate, then its inclusive prefix, carry included.  A float64
+// sum keeps the state in its two lowest mantissa bits (a relative change
+// below 2^-50); an int32 count sits in the high half, the state in the low
+// one.  A word is read and written whole (relaxed 64-bit accesses at device
+// scope), so a reader needs no ordering against any other memory.  Zero is
+// "not yet".
 enum : unsigned long long {
   kStatusInvalid = 0,
   kStatusAggregate = 1,
@@ -249,8 +126,24 @@ __device__ __forceinline__ unsigned long long status_word(double v,
   return ((unsigned long long)__double_as_longlong(v) & ~kStatusMask) | s;
 }
 
-__device__ __forceinline__ double status_value(unsigned long long w) {
+__device__ __forceinline__ unsigned long long status_word(unsigned v,
+                                                          unsigned long long s) {
+  return ((unsigned long long)v << 32) | s;
+}
+
+template <typename T>
+__device__ T word_value(unsigned long long w);
+
+template <>
+__device__ __forceinline__ double word_value<double>(unsigned long long w) {
   return __longlong_as_double((long long)(w & ~kStatusMask));
+}
+
+// Counts are summed as unsigned (wrapping) and read back as int32, so a
+// negative count keeps its sign.
+template <>
+__device__ __forceinline__ unsigned word_value<unsigned>(unsigned long long w) {
+  return (unsigned)(w >> 32);
 }
 
 __device__ __forceinline__ void store_status(unsigned long long* p,
@@ -270,182 +163,352 @@ __device__ __forceinline__ unsigned long long load_status(
 }
 
 // Wait until the tiles before `tile` have published enough to sum every
-// event before it; returns the (contrib, idle) prefix, carry included (the
-// walk ends on an inclusive word, and tile 0's holds the carry).  Each
-// lane reads one predecessor's two words per step; the two sums end
+// event before it, on each of kChains chains whose words for tile p lie at
+// words[kChains * p + x]; acc[x] receives chain x's prefix, carry included
+// (the walk ends on an inclusive word, and tile 0's holds the carry).  Each
+// lane reads one predecessor's words per step; the chains end
 // independently.  Called by all 32 lanes of one warp.
+template <typename T, int kChains>
 __device__ __forceinline__ void look_back(int64_t tile,
-                                          const unsigned long long* status,
-                                          double* pc, double* pi) {
+                                          const unsigned long long* words,
+                                          T (&acc)[kChains]) {
   const int lane = lane_id();
-  double acc[2] = {0.0, 0.0};
-  bool open[2] = {true, true};
-  for (int64_t pos = tile - 1; open[0] || open[1]; pos -= 32) {
+  bool open[kChains];
+  int nopen = kChains;
+#pragma unroll
+  for (int x = 0; x < kChains; ++x) {
+    acc[x] = T(0);
+    open[x] = true;
+  }
+  for (int64_t pos = tile - 1; nopen > 0; pos -= 32) {
     const int64_t p = pos - lane;
-    unsigned long long w[2];
+    unsigned long long w[kChains];
     bool wait;
     do {
       wait = false;
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        w[x] = p >= 0 && open[x] ? load_status(status + 2 * p + x)
+      for (int x = 0; x < kChains; ++x) {
+        w[x] = p >= 0 && open[x] ? load_status(words + kChains * p + x)
                                  : kStatusInclusive;
         wait |= (w[x] & kStatusMask) == kStatusInvalid;
       }
     } while (__any_sync(kFullMask, wait));
 #pragma unroll
-    for (int x = 0; x < 2; ++x) {
+    for (int x = 0; x < kChains; ++x) {
       if (!open[x]) continue;  // the same for every lane
       const unsigned incl = __ballot_sync(
           kFullMask, (w[x] & kStatusMask) == kStatusInclusive && p >= 0);
       const int stop = incl ? __ffs(incl) - 1 : 31;
-      double v = lane <= stop && p >= 0 ? status_value(w[x]) : 0.0;
+      T v = lane <= stop && p >= 0 ? word_value<T>(w[x]) : T(0);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
       acc[x] += v;
-      open[x] = incl == 0;
+      if (incl) {
+        open[x] = false;
+        --nopen;
+      }
     }
   }
-  *pc = acc[0];
-  *pi = acc[1];
 }
 
-__global__ void __launch_bounds__(kCsThreads)
-carry_cumsum_lookback(const float* contrib, const float* idle, int64_t e,
-                      int vec, Carry carry0, int64_t ntiles,
-                      unsigned long long* status, float* g, float* scalars) {
-  __shared__ int64_t s_tile;
-  __shared__ float s_warp_c[kCsWarps], s_warp_i[kCsWarps];
+// The tile's (contrib, idle) sums from each warp's totals (held by lane
+// 31), and the offset of this thread's warp within the tile.  Ends with the
+// barrier that makes the totals visible to every warp.
+__device__ __forceinline__ void tile_sums(float wc, float wi, float* woff,
+                                          float* ctot, float* itot) {
+  __shared__ float s_c[kWarps], s_i[kWarps];
+  const int warp = threadIdx.x >> 5;
+  if (lane_id() == 31) {
+    s_c[warp] = wc;
+    s_i[warp] = wi;
+  }
+  __syncthreads();
+  float c = 0.f, i = 0.f;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    if (k == warp) *woff = c;
+    c += s_c[k];
+    i += s_i[k];
+  }
+  *ctot = c;
+  *itot = i;
+}
+
+// Warp 0's publication of a tile's float64 (contrib, idle) sums on the
+// chain at words (two a tile): the aggregate, the look-back, the inclusive
+// prefix.  Returns the prefix before the tile (every lane of warp 0).
+__device__ __forceinline__ void publish_sums(int64_t tile,
+                                             unsigned long long* words,
+                                             double ctot, double itot,
+                                             double (&pre)[2]) {
+  if (tile > 0) {
+    if (lane_id() == 0) {
+      store_status(words + 2 * tile, status_word(ctot, kStatusAggregate));
+      store_status(words + 2 * tile + 1, status_word(itot, kStatusAggregate));
+    }
+    look_back(tile, words, pre);
+  }
+  if (lane_id() == 0) {
+    store_status(words + 2 * tile,
+                 status_word(pre[0] + ctot, kStatusInclusive));
+    store_status(words + 2 * tile + 1,
+                 status_word(pre[1] + itot, kStatusInclusive));
+  }
+}
+
+// ---- fold: one pass, two chained look-backs --------------------------------
+//
+// The tile waits in shared memory (dt, then deltas; 64 KB, dynamic),
+// brought in by cp.async, so no register holds tile data across the two
+// look-backs: 40 registers a thread and three blocks an SM, where tile data
+// held in registers took 64 and allowed two.  Each thread reads back only
+// the words it copied.  status: ntiles count words, then ntiles (contrib,
+// idle) pairs, then the tile ticket.
+constexpr int kFoldSmem = kTile * (int)(sizeof(float) + sizeof(int));
+
+// p[i:i+4] to the shared words at s: one 16-byte asynchronous copy when
+// vec is set and all four lie below e; items at or past e become 0.
+template <typename T>
+__device__ __forceinline__ void stage4(T* s, const T* p, int64_t i, int64_t e,
+                                       int vec) {
+  if (vec && i + 4 <= e) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     gapp::smem_addr(s)),
+                 "l"(p + i)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[q] = i + q < e ? p[i + q] : T(0);
+  }
+}
+
+template <typename V, typename T>
+__device__ __forceinline__ void smem_load4(const T* s, T (&x)[4]) {
+  const V v = *reinterpret_cast<const V*>(s);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+
+template <typename V, typename T>
+__device__ __forceinline__ void smem_store4(T* s, const T (&x)[4]) {
+  V v;
+  v.x = x[0]; v.y = x[1]; v.z = x[2]; v.w = x[3];
+  *reinterpret_cast<V*>(s) = v;
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+fold_lookback(const float* dt, const int* deltas, int64_t e, int vec,
+              Carry carry0, int64_t ntiles, unsigned long long* status,
+              int* n_out, float* gcm, float* scalars) {
+  extern __shared__ __align__(16) unsigned char s_tile_data[];
+  __shared__ int s_warp_n[kWarps];
+  __shared__ int s_count;
   __shared__ double s_off;
+  unsigned long long* count_words = status;
+  unsigned long long* sum_words = status + ntiles;
   const int lane = lane_id();
   const int warp = threadIdx.x >> 5;
-  // Tiles are numbered in the order blocks start, so every tile a block
-  // waits for belongs to a block that is already running.
-  if (threadIdx.x == 0)
-    s_tile = atomicAdd(reinterpret_cast<unsigned*>(status + 2 * ntiles), 1u);
+  const int64_t tile = take_tile(status + 3 * ntiles);
+  const int local = warp * kWarpSpan + lane * 4;
+  const int64_t at = tile * kTile + local;
+  const bool last = tile == ntiles - 1;
+  // The tile in shared memory: dt, which becomes the contributions'
+  // in-warp prefix, and the deltas, which become theirs.
+  float* s_t = reinterpret_cast<float*>(s_tile_data) + local;
+  int* s_d = reinterpret_cast<int*>(s_tile_data + kTile * sizeof(float)) +
+             local;
+
+  // Two copy groups: the deltas are scanned while dt is still in flight.
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j)
+    stage4(s_d + 128 * j, deltas, at + 128 * j, e, vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j)
+    stage4(s_t + 128 * j, dt, at + 128 * j, e, vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+
+  // The count: the in-warp inclusive scan, the warps' offsets, and the
+  // tile's aggregate published before the look-back.
+  int wn = 0;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    int x[4];
+    smem_load4<int4>(s_d + 128 * j, x);
+    warp_scan_step<false>(x, &wn);
+    smem_store4<int4>(s_d + 128 * j, x);
+  }
+  if (lane == 0) s_warp_n[warp] = wn;
   __syncthreads();
-  const int64_t tile = s_tile;
-  const int64_t tile_base = tile * kCsTile;
-  const int local = warp * kCsWarpSpan + lane * 4;
-
-  float c[kCsVecs][4], w[kCsVecs][4];
+  int noff = 0, ntot = 0;
 #pragma unroll
-  for (int j = 0; j < kCsVecs; ++j) {
-    load4<float4>(contrib, tile_base + local + 128 * j, e, vec, 0.f, c[j]);
-    load4<float4>(idle, tile_base + local + 128 * j, e, vec, 0.f, w[j]);
+  for (int k = 0; k < kWarps; ++k) {
+    if (k == warp) noff = ntot;
+    ntot += s_warp_n[k];
   }
-
-  // In-warp inclusive scan of 512 events, float32; c becomes the prefix.
-  float run = 0.f, isum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kCsVecs; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      s += c[j][q];
-      c[j][q] = s;
-      isum += w[j][q];
-    }
-    const float wi = warp_inclusive(s);
-    float ex = __shfl_up_sync(kFullMask, wi, 1);
-    if (lane == 0) ex = 0.f;
-    const float base = run + ex;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) c[j][q] += base;
-    run += __shfl_sync(kFullMask, wi, 31);
-  }
-  const float wis = warp_inclusive(isum);
-  if (lane == 31) {
-    s_warp_c[warp] = run;
-    s_warp_i[warp] = wis;
-  }
-  __syncthreads();
-  float woff = 0.f, tot = 0.f, itot = 0.f;
-#pragma unroll
-  for (int k = 0; k < kCsWarps; ++k) {
-    if (k == warp) woff = tot;
-    tot += s_warp_c[k];
-    itot += s_warp_i[k];
-  }
-
   if (warp == 0) {
-    // Tile 0 starts from the carry; every inclusive word holds it.
-    double pc = (double)carry0[0], pi = (double)carry0[1];
+    unsigned pre[1] = {(unsigned)__float2int_rz(carry0[0])};
     if (tile > 0) {
-      if (lane == 0) {
-        store_status(status + 2 * tile, status_word(tot, kStatusAggregate));
-        store_status(status + 2 * tile + 1,
-                     status_word(itot, kStatusAggregate));
-      }
-      look_back(tile, status, &pc, &pi);
+      if (lane == 0)
+        store_status(count_words + tile,
+                     status_word((unsigned)ntot, kStatusAggregate));
+      look_back(tile, count_words, pre);
     }
     if (lane == 0) {
-      const double ic = pc + (double)tot, ii = pi + (double)itot;
-      store_status(status + 2 * tile, status_word(ic, kStatusInclusive));
-      store_status(status + 2 * tile + 1, status_word(ii, kStatusInclusive));
-      s_off = pc;
-      if (tile == ntiles - 1) {
-        scalars[0] = (float)ic;
-        scalars[1] = (float)ii;
+      const unsigned incl = pre[0] + (unsigned)ntot;
+      store_status(count_words + tile, status_word(incl, kStatusInclusive));
+      s_count = (int)pre[0];
+      if (last) scalars[2] = (float)(int)incl;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  // n, the idle time, and the contributions' in-warp exclusive prefix.
+  const int nbase = s_count + noff;
+  float isum = 0.f, wc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    int n[4];
+    float t[4];
+    smem_load4<int4>(s_d + 128 * j, n);
+    smem_load4<float4>(s_t + 128 * j, t);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      n[q] += nbase;
+      if (n[q] <= 0 && t[q] > 0.f) isum += t[q];
+      t[q] = contrib_of(t[q], n[q]);
+    }
+    store4<int4>(n_out, at + 128 * j, e, vec, n);
+    warp_scan_step<true>(t, &wc);
+    smem_store4<float4>(s_t + 128 * j, t);
+  }
+
+  // gcm: the look-back over the (contrib, idle) sums.
+  float woff, ctot, itot;
+  tile_sums(wc, warp_inclusive(isum), &woff, &ctot, &itot);
+  if (warp == 0) {
+    double pre[2] = {(double)carry0[1], (double)carry0[2]};
+    publish_sums(tile, sum_words, ctot, itot, pre);
+    if (lane == 0) {
+      s_off = pre[0];
+      if (last) {
+        scalars[0] = (float)(pre[0] + ctot);
+        scalars[1] = (float)(pre[1] + itot);
       }
     }
   }
   __syncthreads();
   const double off = s_off;
 #pragma unroll
-  for (int j = 0; j < kCsVecs; ++j) {
+  for (int j = 0; j < kVecs; ++j) {
+    float g[4];
+    smem_load4<float4>(s_t + 128 * j, g);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[q] = (float)(off + (double)(woff + g[q]));
+    store4<float4>(gcm, at + 128 * j, e, vec, g);
+  }
+}
+
+// ---- carry_cumsum: one pass, one look-back ---------------------------------
+//
+// status: ntiles (contrib, idle) pairs, then the tile ticket.
+__global__ void __launch_bounds__(kThreads)
+carry_cumsum_lookback(const float* contrib, const float* idle, int64_t e,
+                      int vec, Carry carry0, int64_t ntiles,
+                      unsigned long long* status, float* g, float* scalars) {
+  __shared__ double s_off;
+  const int lane = lane_id();
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = take_tile(status + 2 * ntiles);
+  const int64_t at = tile * kTile + warp * kWarpSpan + lane * 4;
+
+  float c[kVecs][4], w[kVecs][4];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    load4<float4>(contrib, at + 128 * j, e, vec, 0.f, c[j]);
+    load4<float4>(idle, at + 128 * j, e, vec, 0.f, w[j]);
+  }
+  // In-warp inclusive scan of 512 events; c becomes the prefix.
+  float wc = 0.f, isum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    warp_scan_step<false>(c[j], &wc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) isum += w[j][q];
+  }
+  float woff, ctot, itot;
+  tile_sums(wc, warp_inclusive(isum), &woff, &ctot, &itot);
+  if (warp == 0) {
+    double pre[2] = {(double)carry0[0], (double)carry0[1]};
+    publish_sums(tile, status, ctot, itot, pre);
+    if (lane == 0) {
+      s_off = pre[0];
+      if (tile == ntiles - 1) {
+        scalars[0] = (float)(pre[0] + ctot);
+        scalars[1] = (float)(pre[1] + itot);
+      }
+    }
+  }
+  __syncthreads();
+  const double off = s_off;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
     float out[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) out[q] = (float)(off + (double)(woff + c[j][q]));
-    store4<float4>(g, tile_base + local + 128 * j, e, vec, out);
+    store4<float4>(g, at + 128 * j, e, vec, out);
   }
+}
+
+// The fold's 64 KB of dynamic shared memory is above the default limit of
+// 48 KB: raise the kernel's limit once per device (racing threads at worst
+// repeat the call).
+cudaError_t allow_fold_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      fold_lookback, cudaFuncAttributeMaxDynamicSharedMemorySize, kFoldSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Events per tile: the wrappers size their scratch with it.
+// Events per tile: the wrappers size their status words with it.
 int gapp_tile_size(void) { return kTile; }
 
 // n[i] = count0 + sum(deltas[:i+1]); gcm[i] = gcm0 + sum(contrib[:i]) with
 // contrib = dt / n where n > 0, else 0; idle = idle0 + sum(dt where n <= 0
 // and dt > 0).  The carry (count0, gcm0, idle0) is float[3] on the device
 // at carry_dev, or (c0, g0, i0) when carry_dev is null; scalars = (total_cm,
-// idle, count) is float[3] on the device.  Scratch: iscratch int[2*ntiles],
-// dscratch double[3*ntiles].  vec: every pointer is 16-byte aligned.
+// idle, count) is float[3] on the device.  Scratch: status uint64[3 *
+// ntiles + 1] (three status words a tile and the tile ticket), zeroed here
+// on the stream.  vec: every pointer is 16-byte aligned.  One memset and
+// one kernel launch.
 int gapp_fold(const float* dt, const int* deltas, long long e,
               const float* carry_dev, float c0, float g0, float i0, int* n,
-              float* gcm, float* scalars, int* iscratch, double* dscratch,
-              int vec, void* stream) {
+              float* gcm, float* scalars, unsigned long long* status, int vec,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Carry carry0 = {carry_dev, {c0, g0, i0}};
   const long long ntiles = (e + kTile - 1) / kTile;
-  const unsigned grid = (unsigned)ntiles;
-  int* tile_count = iscratch;
-  int* tile_count_off = iscratch + ntiles;
-  double* tile_cm = dscratch;
-  double* tile_idle = dscratch + ntiles;
-  double* tile_off = dscratch + 2 * ntiles;
-  fold_count_tiles<<<grid, kThreads, 0, s>>>(deltas, e, vec, tile_count);
-  GAPP_LAUNCH_CHECK();
-  fold_scan_counts<<<1, kScanThreads, 0, s>>>(tile_count, ntiles, carry0,
-                                              tile_count_off, scalars + 2);
-  GAPP_LAUNCH_CHECK();
-  fold_tile_n<<<grid, kThreads, 0, s>>>(dt, deltas, e, vec, tile_count_off, n,
-                                        tile_cm, tile_idle);
-  GAPP_LAUNCH_CHECK();
-  scan_tile_sums<<<1, kScanThreads, 0, s>>>(tile_cm, tile_idle, ntiles,
-                                            carry0, 1, 2, tile_off,
-                                            scalars + 0, scalars + 1);
-  GAPP_LAUNCH_CHECK();
-  fold_tile_gcm<<<grid, kThreads, 0, s>>>(dt, n, e, vec, tile_off, gcm);
+  cudaError_t err = allow_fold_smem();
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(
+        status, 0, sizeof(unsigned long long) * (size_t)(3 * ntiles + 1), s);
+  if (err != cudaSuccess) return (int)err;
+  fold_lookback<<<(unsigned)ntiles, kThreads, kFoldSmem, s>>>(
+      dt, deltas, e, vec, carry0, ntiles, status, n, gcm, scalars);
   GAPP_LAUNCH_CHECK();
   return 0;
 }
-
-// Events per carry_cumsum tile: the wrapper sizes its scratch with it.
-int gapp_cumsum_tile_size(void) { return kCsTile; }
 
 // g[i] = gcm0 + sum(contrib[:i+1]); scalars = (g[-1], idle0 +
 // sum(idle_contrib)).  The carry (gcm0, idle0) is float[2] on the device at
@@ -458,11 +521,11 @@ int gapp_carry_cumsum(const float* contrib, const float* idle_contrib,
                       int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Carry carry0 = {carry_dev, {g0, i0, 0.f}};
-  const long long ntiles = (e + kCsTile - 1) / kCsTile;
+  const long long ntiles = (e + kTile - 1) / kTile;
   const cudaError_t err = cudaMemsetAsync(
       status, 0, sizeof(unsigned long long) * (size_t)(2 * ntiles + 1), s);
   if (err != cudaSuccess) return (int)err;
-  carry_cumsum_lookback<<<(unsigned)ntiles, kCsThreads, 0, s>>>(
+  carry_cumsum_lookback<<<(unsigned)ntiles, kThreads, 0, s>>>(
       contrib, idle_contrib, e, vec, carry0, ntiles, status, g, scalars);
   GAPP_LAUNCH_CHECK();
   return 0;

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Ragged shapes (a partial last tile, one event, empty input), many-tile
-prefixes with a carry by value and one on the device, back-to-back calls
-(stale look-back state), bins on both sides of every threshold of the
+prefixes with a carry by value and one on the device (one an earlier fold
+returned), back-to-back calls (stale look-back state), errors against a
+float64 prefix, bins on both sides of every threshold of the
 histogram's paths and each path reached through K, skewed and
 all-in-one-bin keys, and inputs that are not 16-byte aligned.  Tolerances: ``n`` and counts exact; float prefixes rtol 1e-5
 (both are float32 scans, summed in another order); weighted histogram
@@ -37,23 +38,81 @@ def _stream(e, seed):
     return t, deltas
 
 
-@pytest.mark.parametrize("e", [1, 7, 2047, 2048, 2049, 100_003])
-def test_cuda_fold_matches_plain(cuda_device, e):
-    t, deltas = _stream(e, e + 11)
-    dt = torch.from_numpy(np.concatenate([np.diff(t), [0.0]]).astype(
-        np.float32)).to(cuda_device)
-    d = torch.from_numpy(deltas).to(cuda_device)
-    carry = (3.0, 0.5, 0.25)
-    before = fold_k.LAUNCHES["fold"]
-    k = fold_k.fold(dt, d, carry)
-    p = ref.fold_ref(dt, d, carry)
-    torch.cuda.synchronize()
-    assert fold_k.LAUNCHES["fold"] == before + 1
+def _fold_inputs(e, seed, dev, offset=0):
+    """dt and deltas of :func:`_stream` on ``dev``; ``offset`` 1 hands over
+    views that start one element into their storage."""
+    t, deltas = _stream(e + offset, seed)
+    dt = np.concatenate([np.diff(t), [0.0]]).astype(np.float32)
+    return (torch.from_numpy(dt).to(dev)[offset:],
+            torch.from_numpy(deltas).to(dev)[offset:])
+
+
+def _fold_carry(carry_on, dev):
+    """A carry by value, or the 0-d device tensors an earlier fold returns
+    (its count, total and idle, in the order a carry takes them)."""
+    if carry_on == "host":
+        return (3.0, 0.5, 0.25)
+    _, _, tot, idle, cnt = fold_k.fold(*_fold_inputs(5_000, 99, dev))
+    return (cnt, tot, idle)
+
+
+def _check_fold(k, p):
     assert torch.equal(k[0], p[0])
     np.testing.assert_allclose(k[1].cpu().numpy(), p[1].cpu().numpy(),
                                rtol=1e-5, atol=1e-6)
     for a, b in zip(k[2:], p[2:]):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("carry_on", ["host", "fold"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("e", [1, 7, 2047, 2048, 2049, 8191, 8192, 8193,
+                               100_003, (1 << 22) + 3])
+def test_cuda_fold_matches_plain(cuda_device, e, offset, carry_on):
+    """8,191-8,193 events lie on the edge of one look-back tile, 2^22 + 3
+    span 513 tiles; ``offset`` 1 hands over views that are not 16-byte
+    aligned; ``carry_on`` "fold" resumes from the 0-d device tensors an
+    earlier call returned."""
+    dt, d = _fold_inputs(e, e + 11, cuda_device, offset)
+    carry = _fold_carry(carry_on, cuda_device)
+    before = fold_k.LAUNCHES["fold"]
+    k = fold_k.fold(dt, d, carry)
+    p = ref.fold_ref(dt, d, carry)
+    torch.cuda.synchronize()
+    assert fold_k.LAUNCHES["fold"] == before + 1
+    _check_fold(k, p)
+
+
+def test_cuda_fold_back_to_back(cuda_device):
+    """50 calls queued on one stream without a synchronise, each with its
+    own carry (negative counts among them): a status word left over from
+    the call before would hand a tile a stale count or prefix."""
+    dt, d = _fold_inputs((1 << 20) + 5, 7, cuda_device)
+    carries = [(float(r - 25), 0.5 * r, 0.25 * r) for r in range(50)]
+    outs = [fold_k.fold(dt, d, c) for c in carries]
+    for c, k in zip(carries, outs):
+        _check_fold(k, ref.fold_ref(dt, d, c))
+
+
+def test_cuda_fold_error_vs_float64(cuda_device):
+    """Against a float64 prefix of the same float32 contributions the
+    kernel's gcm error is no worse than the plain float32 ``torch.cumsum``'s
+    (the in-warp scan is float32, the carry across warps and tiles
+    float64)."""
+    dt, d = _fold_inputs((1 << 22) + 3, 3, cuda_device)
+    carry = (2.0, 0.125, 0.0625)
+    nk, gk, _, ik, _ = fold_k.fold(dt, d, carry)
+    n_p, gp, _, _, _ = ref.fold_ref(dt, d, carry)
+    assert torch.equal(nk, n_p)
+    c = torch.where(nk > 0, dt / nk.clamp(min=1).float(),
+                    torch.zeros_like(dt)).double()
+    g64 = float(np.float32(0.125)) + torch.cumsum(c, 0) - c
+    err_k = float((gk.double() - g64).abs().max())
+    err_p = float((gp.double() - g64).abs().max())
+    assert err_k <= err_p, (err_k, err_p)
+    i64 = float(np.float32(0.0625)) + float(torch.where(
+        (nk <= 0) & (dt > 0), dt, torch.zeros_like(dt)).double().sum())
+    assert abs(float(ik) - i64) <= 1e-6 * i64
 
 
 def _cumsum_inputs(e, seed, dev, offset=0):
