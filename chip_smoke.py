@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's offline analysis path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis and live paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -21,16 +21,46 @@ Phases (any failure exits non-zero):
    fold at E = 2^24; carry_cumsum at E = 2^24 and at one main-path chunk
    (2^20 events, the carry on the device);
    tag_hist at S = 2^24 with uniform tags over K = 3,300 and K = 2^20 and
-   with skewed tags (90% in 64 bins), weighted.
+   with skewed tags (90% in 64 bins), weighted; stream_scan on the first
+   2^16 events of the capture against its plain version (float32 in event
+   order, on the host), then it and its plain version timed at E = 2^24.
 3. The main path: ``detect_offline`` with the fused backend, whole-log and
    with ``chunk_events=1<<20``, checked against the float64 ``numpy``
    chunked fold (per-worker CMetric, slice counts, critical-set flips, the
    top-ranked path), with every kernel's launch count read around it.
    tag_hist is then timed on the keys the detector handed it (no weights).
+   Then ``detect_offline`` with the ``stream`` backend whole-log: its
+   stream_scan call held against the plain version on the same 2^24
+   inputs, slice count equal to the oracle's, every value finite; its
+   float32 error against the oracle is printed, not held to a limit (a
+   2^24-term float32 chain drops increments below half an ulp by design).
+4. Offline session and spill: ``ProfileSession.offline(..., backend=
+   "fused", chunk_events=1<<20)`` over the capture, and the capture
+   written to a ``SpillStore`` (in a temporary directory) and replayed
+   through ``SpillSource`` into a fused session; both checked like phase 3.
+5. Live session on the card: a ``ProfileSession`` (fused, CUDA) over 32
+   threads, one of which holds a lock-protected ``write_output`` section;
+   a mid-run ``snapshot()``, then ``result()`` against ``detect_offline``
+   on the frozen log with the ``numpy`` backend, and ``serve()``'s
+   ``/api/report`` against ``export("json")``, byte for byte.
+6. Fleet: the ``repro_torch.examples.fleet_dashboard`` flow (two hosts'
+   ``RemoteSink``s into an ``IngestServer`` with a fleet_dir, a fused
+   session over its ``FleetSource``); ``/api/report`` against
+   ``export("json")`` and, served from the fleet_dir, ``/api/whatif``
+   against the offline ``what_if(...).to_json()``, byte for byte.
+
+Each path of phases 3-6 runs with every kernel's launch count set to 0
+just before it and read just after, and must launch the kernels it goes
+through.  Every kernel call such a path makes is recorded (its inputs and
+outputs, cloned on the card) and held against the kernel's plain version
+on the same inputs after the run, at the tolerances of phase 2: so the
+kernels are also checked at the shapes the live and fleet paths hand them
+(drain chunks of tens of events, a few hundred keys).
 
 The last three lines are the card's name and power limit, one JSON object
-with a row per kernel (the other shapes it was timed at under ``shapes``),
-and ``{"ok": true, "device": {...}}``.
+with a row per kernel (the other shapes it was timed at under ``shapes``;
+``launches`` summed over the paths of phases 3-6), and ``{"ok": true,
+"device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
 and ``torch.profiler``: the host functions that take the time, and the
@@ -42,11 +72,16 @@ histogram only, to set two versions side by side in one run.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -56,6 +91,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores.  Both assume the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Cycles from one dependent float32 add to the next on an SM: "about 4"
+# for most arithmetic instructions on compute capability 7.x and later
+# (CUDA C++ Programming Guide, "Maximize Utilization", multiprocessor
+# level).  The stream scan's chain bound is E of them at the SM clock.
+FADD_LATENCY_CYCLES = 4
 
 INJECTED_PATH = (0, 1, 2, 3)   # main > train_step > allreduce > lock_acquire
 WAIT_PATH = (0, 1, 4)          # main > train_step > barrier_wait
@@ -273,8 +313,10 @@ class KernelRows:
         self.rows = {}
 
     def add(self, key, name, source, replaces, shape, err, ms, plain_ms,
-            nbytes, nops, library_ms, composite_ms, **extra):
-        b_ms, b_by = bound_ms(nbytes, nops)
+            nbytes, nops, library_ms, composite_ms, bound=None, **extra):
+        """``bound`` overrides the bytes-or-operations bound with a
+        ``(ms, by)`` the caller reckoned (the stream scan's chain)."""
+        b_ms, b_by = bound_ms(nbytes, nops) if bound is None else bound
         entry = {"shape": shape, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": library_ms, "composite_ms": composite_ms,
@@ -295,6 +337,44 @@ class KernelRows:
 
 FOLD_SRC = "src/repro_torch/kernels/csrc/cmetric_fold.cu"
 HIST_SRC = "src/repro_torch/kernels/csrc/tag_hist.cu"
+STREAM_SRC = "src/repro_torch/kernels/csrc/stream_scan.cu"
+
+
+def hold_fold(label, dt, deltas, carry, out) -> dict:
+    """A fold call's outputs ``out`` against its plain version on the same
+    inputs and a float64 prefix: ``n`` and the count equal; gcm within
+    1e-5 max|gcm| of the float64 prefix (or no further than the plain
+    version is) and of the plain version; total_cm and idle to 1e-5."""
+    import torch
+    from repro_torch.kernels import ref
+    n_k, g_k, tot_k, idle_k, cnt_k = out
+    n_p, g_p, tot_p, idle_p, cnt_p = ref.fold_ref(dt, deltas, carry)
+    check(torch.equal(n_k, n_p), f"fold {label}: n differs from the plain "
+          "version")
+    _, g0, i0 = (0.0, 0.0, 0.0) if carry is None else (float(c)
+                                                       for c in carry)
+    c64 = torch.where(n_k > 0, dt.double() / n_k.clamp(min=1).double(),
+                      torch.zeros_like(dt, dtype=torch.float64))
+    incl64 = float(np.float32(g0)) + torch.cumsum(c64, 0)
+    g64 = incl64 - c64
+    scale = float(g64.abs().max())
+    err_k = float((g_k.double() - g64).abs().max())
+    err_p = float((g_p.double() - g64).abs().max())
+    diff = float((g_k - g_p).abs().max())
+    tol = 1e-5 * scale
+    check(err_k <= max(tol, err_p), f"fold {label}: gcm misses the float64 "
+          "bound")
+    check(diff <= tol + err_p, f"fold {label}: gcm disagrees with the plain "
+          "version")
+    tot64 = float(incl64[-1])
+    idle64 = float(np.float32(i0)) + float(torch.where(
+        (n_k <= 0) & (dt > 0), dt.double(), torch.zeros_like(c64)).sum())
+    check(abs(float(tot_k) - tot64) <= 1e-5 * max(abs(tot64), 1e-9),
+          f"fold {label}: total_cm")
+    check(abs(float(idle_k) - idle64) <= 1e-5 * max(idle64, 1e-9),
+          f"fold {label}: idle")
+    check(float(cnt_k) == float(cnt_p), f"fold {label}: final count")
+    return {"diff": diff, "err_k": err_k, "err_p": err_p, "tol": tol}
 
 
 def check_fold(rows, dt, deltas, log, e):
@@ -302,31 +382,12 @@ def check_fold(rows, dt, deltas, log, e):
     import torch
     from repro_torch.kernels import cmetric_fold as fold_k
     from repro_torch.kernels import ref
-    n_k, g_k, tot_k, idle_k, cnt_k = fold_k.fold(dt, deltas)
-    n_p, g_p, tot_p, idle_p, cnt_p = ref.fold_ref(dt, deltas)
-    torch.cuda.synchronize()
-    check(torch.equal(n_k, n_p), "fold: n differs from the plain version")
-    c64 = torch.where(n_k > 0, dt.double() / n_k.clamp(min=1).double(),
-                      torch.zeros_like(dt, dtype=torch.float64))
-    incl64 = torch.cumsum(c64, 0)
-    g64 = incl64 - c64
-    scale = float(g64.abs().max())
-    err_k = float((g_k.double() - g64).abs().max())
-    err_p = float((g_p.double() - g64).abs().max())
-    diff = float((g_k - g_p).abs().max())
-    tol = 1e-5 * scale
-    print(f"[kernel] fold gcm vs float64 prefix: kernel {err_k:.3e}, plain "
-          f"{err_p:.3e}, bound 1e-5*max|gcm| = {tol:.3e}")
-    check(err_k <= max(tol, err_p), "fold: gcm misses the float64 bound")
-    check(diff <= tol + err_p, "fold: gcm disagrees with the plain version")
-    idle64 = float(torch.where((n_k <= 0) & (dt > 0), dt.double(),
-                               torch.zeros_like(c64)).sum())
-    check(abs(float(tot_k) - float(incl64[-1])) <= 1e-5 * float(incl64[-1]),
-          "fold: total_cm")
-    check(abs(float(idle_k) - idle64) <= 1e-5 * max(idle64, 1e-9),
-          "fold: idle")
-    check(float(cnt_k) == float(cnt_p) == float(log.deltas.sum()),
-          "fold: final count")
+    out = fold_k.fold(dt, deltas)
+    st = hold_fold(f"E={e}", dt, deltas, None, out)
+    print(f"[kernel] fold gcm vs float64 prefix: kernel {st['err_k']:.3e}, "
+          f"plain {st['err_p']:.3e}, bound 1e-5*max|gcm| = {st['tol']:.3e}")
+    check(float(out[4]) == float(log.deltas.sum()), "fold: final count")
+    n_k = out[0]
     contrib = torch.where(n_k > 0, dt / n_k.clamp(min=1).float(),
                           torch.zeros_like(dt))
 
@@ -338,11 +399,41 @@ def check_fold(rows, dt, deltas, log, e):
                 torch.cumsum(contrib, 0))
 
     rows.add("fold", "cmetric_fold.fold", FOLD_SRC,
-             "src/repro/kernels/cmetric_fold.py:52", f"E={e}", diff,
+             "src/repro/kernels/cmetric_fold.py:52", f"E={e}", st["diff"],
              time_ms(kernel), time_ms(lambda: ref.fold_ref(dt, deltas)),
              16.0 * e, 4.0 * e, time_ms(library), None,
              graph_ms=graph_ms(kernel), library_graph_ms=graph_ms(library))
     return n_k
+
+
+def hold_carry_cumsum(label, contrib, idle_c, carry, out) -> dict:
+    """A carry_cumsum call's outputs ``out`` against its plain version on
+    the same inputs and a float64 prefix: g within 1e-5 max|g| of the
+    float64 prefix (or no further than the plain version is) and of the
+    plain version; gcm_end is g[-1]; idle_end to 1e-5."""
+    import torch
+    from repro_torch.kernels import ref
+    c_vals = tuple(float(c) for c in carry)
+    gk, ek, ik = out
+    gp, _, ip = ref.carry_cumsum_ref(contrib, idle_c, c_vals)
+    g64 = float(np.float32(c_vals[0])) + torch.cumsum(contrib.double(), 0)
+    i64 = float(np.float32(c_vals[1])) + float(idle_c.double().sum())
+    scale = float(g64.abs().max())
+    err_k = float((gk.double() - g64).abs().max())
+    err_p = float((gp.double() - g64).abs().max())
+    diff = float((gk - gp).abs().max())
+    tol = 1e-5 * scale
+    check(err_k <= max(tol, err_p), f"carry_cumsum {label}: g misses the "
+          "bound")
+    check(diff <= tol + err_p, f"carry_cumsum {label}: g disagrees with "
+          "plain")
+    check(abs(float(ek) - float(gk[-1])) <= 1e-6 * scale,
+          f"carry_cumsum {label}: gcm_end is not g[-1]")
+    check(abs(float(ik) - i64) <= 1e-5 * max(abs(i64), 1e-9),
+          f"carry_cumsum {label}: idle_end vs float64")
+    check(abs(float(ik) - float(ip)) <= 1e-5 * max(abs(i64), 1e-9),
+          f"carry_cumsum {label}: idle_end vs plain")
+    return {"diff": diff, "err_k": err_k, "err_p": err_p, "tol": tol}
 
 
 def check_carry_cumsum(rows, contrib, idle_c, carry, shape, repeats):
@@ -354,27 +445,11 @@ def check_carry_cumsum(rows, contrib, idle_c, carry, shape, repeats):
     from repro_torch.kernels import ref
     e = contrib.shape[0]
     c_vals = tuple(float(c) for c in carry)
-    gk, ek, ik = fold_k.carry_cumsum(contrib, idle_c, carry)
-    gp, _, ip = ref.carry_cumsum_ref(contrib, idle_c, c_vals)
-    torch.cuda.synchronize()
-    g64 = float(np.float32(c_vals[0])) + torch.cumsum(contrib.double(), 0)
-    i64 = float(np.float32(c_vals[1])) + float(idle_c.double().sum())
-    scale = float(g64.abs().max())
-    err_k = float((gk.double() - g64).abs().max())
-    err_p = float((gp.double() - g64).abs().max())
-    diff = float((gk - gp).abs().max())
-    tol = 1e-5 * scale
+    st = hold_carry_cumsum(shape, contrib, idle_c, carry,
+                           fold_k.carry_cumsum(contrib, idle_c, carry))
     print(f"[kernel] carry_cumsum {shape} g vs float64 prefix: kernel "
-          f"{err_k:.3e}, plain {err_p:.3e}, bound 1e-5*max|g| = {tol:.3e}")
-    check(err_k <= max(tol, err_p), f"carry_cumsum {shape}: g misses the "
-          "bound")
-    check(diff <= tol + err_p, f"carry_cumsum {shape}: g disagrees with plain")
-    check(abs(float(ek) - float(gk[-1])) <= 1e-6 * scale,
-          f"carry_cumsum {shape}: gcm_end is not g[-1]")
-    check(abs(float(ik) - i64) <= 1e-5 * max(abs(i64), 1e-9),
-          f"carry_cumsum {shape}: idle_end vs float64")
-    check(abs(float(ik) - float(ip)) <= 1e-5 * max(abs(i64), 1e-9),
-          f"carry_cumsum {shape}: idle_end vs plain")
+          f"{st['err_k']:.3e}, plain {st['err_p']:.3e}, bound 1e-5*max|g| = "
+          f"{st['tol']:.3e}")
     g0 = torch.as_tensor(c_vals[0], dtype=torch.float32, device=contrib.device)
     i0 = torch.as_tensor(c_vals[1], dtype=torch.float32, device=contrib.device)
 
@@ -386,7 +461,7 @@ def check_carry_cumsum(rows, contrib, idle_c, carry, shape, repeats):
         return fold_k.carry_cumsum(contrib, idle_c, carry)
 
     rows.add("carry_cumsum", "cmetric_fold.carry_cumsum", FOLD_SRC,
-             "src/repro/kernels/cmetric_fold.py:146", shape, diff,
+             "src/repro/kernels/cmetric_fold.py:146", shape, st["diff"],
              time_ms(kernel, repeats),
              time_ms(lambda: ref.carry_cumsum_ref(contrib, idle_c, c_vals),
                      repeats),
@@ -395,6 +470,24 @@ def check_carry_cumsum(rows, contrib, idle_c, carry, shape, repeats):
              time_ms(composite, repeats), graph_ms=graph_ms(kernel, repeats),
              library_graph_ms=graph_ms(lambda: torch.cumsum(contrib, 0),
                                        repeats))
+
+
+def hold_hist(label, tg, wt, k, out) -> float:
+    """A tag_hist call's outputs ``out`` against its plain version on the
+    same inputs: counts equal, weighted sums to rtol 1e-4 (float atomics
+    add in another order), and the counts as f32 when unweighted.  Returns
+    max |wsum - plain|."""
+    import torch
+    from repro_torch.kernels import ref
+    ck, wk = out
+    cp, wp = ref.hist_ref(tg, wt, k)
+    check(torch.equal(ck, cp), f"tag_hist {label}: counts differ")
+    check(torch.allclose(wk, wp, rtol=1e-4, atol=1e-6),
+          f"tag_hist {label}: weighted sums differ beyond rtol 1e-4")
+    if wt is None:
+        check(torch.equal(wk, ck.float()), f"tag_hist {label}: wsum is not "
+              "counts as f32")
+    return float((wk - wp).abs().max())
 
 
 def check_hist(rows, tg, wt, k, shape, repeats, key="hist"):
@@ -406,19 +499,10 @@ def check_hist(rows, tg, wt, k, shape, repeats, key="hist"):
     from repro_torch.kernels import ref
     from repro_torch.kernels import tag_hist as hist_k
     s = tg.shape[0]
-    ck, wk = hist_k.hist(tg, wt, num_bins=k)
+    err = hold_hist(shape, tg, wt, k, hist_k.hist(tg, wt, num_bins=k))
     # where the bins live (a checkout older than ``bins_path`` has one place)
     path = (hist_k.bins_path(k, wt is not None)
             if hasattr(hist_k, "bins_path") else None)
-    cp, wp = ref.hist_ref(tg, wt, k)
-    torch.cuda.synchronize()
-    check(torch.equal(ck, cp), f"tag_hist {shape}: counts differ")
-    check(torch.allclose(wk, wp, rtol=1e-4, atol=1e-6),
-          f"tag_hist {shape}: weighted sums differ beyond rtol 1e-4")
-    if wt is None:
-        check(torch.equal(wk, ck.float()), f"tag_hist {shape}: wsum is not "
-              "counts as f32")
-    err = float((wk - wp).abs().max())
     keep = (tg >= 0) & (tg < k)
     tv = tg[keep]
     wv = None if wt is None else wt[keep]
@@ -444,6 +528,196 @@ def check_hist(rows, tg, wt, k, shape, repeats, key="hist"):
                                repeats))
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def stream_columns(log, dev):
+    """The capture's columns as ``stream_scan`` takes them, on ``dev``."""
+    import torch
+    return (torch.from_numpy(log.slice_seconds().astype(np.float32)).to(dev),
+            torch.from_numpy(log.workers.astype(np.int32)).to(dev),
+            torch.from_numpy(log.deltas.astype(np.int32)).to(dev))
+
+
+def hold_stream(label, times_s, workers, deltas, num_workers, out):
+    """A stream_scan call's outputs ``out`` against its plain version on
+    the same inputs: rows, workers and n_at_exit equal; the per-worker
+    CMetric, idle, global_cm and the float columns to rtol 1e-6.  Returns
+    ``(bit_equal, max_abs_err, rows)``."""
+    import torch
+    from repro_torch.kernels import ref
+    p = ref.stream_ref(times_s, workers, deltas, num_workers)
+    kr, pr = out[3], p[3]
+    check(kr[0].shape == pr[0].shape == (int((deltas <= 0).sum()),),
+          f"stream {label}: row count")
+    check(torch.equal(kr[0], pr[0]) and torch.equal(kr[5], pr[5]),
+          f"stream {label}: worker or n_at_exit differs from the plain "
+          "version")
+    pairs = (("per-worker CMetric", out[0], p[0]), ("idle", out[1], p[1]),
+             ("global_cm", out[2], p[2]), ("start", kr[1], pr[1]),
+             ("end", kr[2], pr[2]), ("slice cm", kr[3], pr[3]),
+             ("threads_av", kr[4], pr[4]))
+    for what, a, b in pairs:
+        check(torch.allclose(a, b, rtol=1e-6, atol=0.0),
+              f"stream {label}: {what} beyond rtol 1e-6 of the plain version")
+    bit_equal = all(torch.equal(a, b) for _, a, b in pairs)
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for _, a, b in pairs)
+    return bit_equal, err, int(kr[0].shape[0])
+
+
+def check_stream(rows, log, dev):
+    """stream_scan against its plain version on the first 2^16 events of
+    the capture, then it and its plain version timed at the whole capture
+    (phase 3 holds the whole-capture call of the main path).  Its bound is
+    the dependent chain: E float32 adds in series at FADD_LATENCY_CYCLES
+    each, at the card's maximum SM clock."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_scan as stream_k
+    nw = log.num_workers
+    sub = log.chunk(0, 1 << 16).sanitize()
+    cols = stream_columns(sub, dev)
+    bit_equal, err, n_rows = hold_stream(
+        f"E={len(sub)}", *cols, nw, stream_k.stream_scan(*cols, nw))
+    print(f"[kernel] stream E={len(sub)} vs plain version: {n_rows} rows, "
+          f"bit-equal {bit_equal}, max_abs_err {err:.3e}")
+    e = len(log)
+    s = int((log.deltas <= 0).sum())
+    t, w, d = stream_columns(log, dev)
+
+    def kernel():
+        return stream_k.stream_scan(t, w, d, nw)
+
+    out = kernel()
+
+    def launch():   # the launch alone, which a CUDA graph can capture
+        stream_k.launch(t, w, d, nw, out)
+
+    # the plain version is a host walk of seconds: one timed call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.stream_ref(t, w, d, nw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hz = sm_clock_hz()
+    chain_ms = e * FADD_LATENCY_CYCLES / hz * 1e3
+    nbytes = 12.0 * e + 24.0 * s + 4.0 * nw
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = ((chain_ms, "operations") if chain_ms >= byte_ms
+             else (byte_ms, "bytes"))
+    print(f"[kernel] stream bound at E={e}: chain {e} x "
+          f"{FADD_LATENCY_CYCLES} cycles at {hz / 1e6:.0f} MHz = "
+          f"{chain_ms:.4f} ms; bytes {nbytes:.0f} at 3.35 TB/s = "
+          f"{byte_ms:.4f} ms")
+    rows.add("stream", "stream_scan.stream_scan", STREAM_SRC,
+             "src/repro/core/cmetric.py:194", f"E={e}", err,
+             time_ms(kernel, 2), plain_ms, nbytes, 0.0, None, None,
+             bound=bound, checked_shape=f"E={len(sub)}", bit_equal=bit_equal,
+             graph_ms=graph_ms(launch, 1))
+
+
+#: Each kernel wrapper, by its launch-count key: (module, function).
+WRAPPERS = {"fold": ("cmetric_fold", "fold"),
+            "carry_cumsum": ("cmetric_fold", "carry_cumsum"),
+            "hist": ("tag_hist", "hist"),
+            "stream": ("stream_scan", "stream_scan")}
+
+
+def _on_card(x) -> bool:
+    return x.is_cuda
+
+
+def _clone(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every call a path makes to a kernel wrapper with tensors on the
+    card: its arguments by name and its outputs, cloned on the card right
+    after the call.  :func:`hold_recorded` then holds the path's own
+    launches against the plain versions, so the checks launch nothing that
+    the path's counts would see."""
+    import importlib
+    import inspect
+    calls = {key: [] for key in WRAPPERS}
+    lock = threading.Lock()
+    saved = []
+    for key, (mod_name, attr) in WRAPPERS.items():
+        name = f"repro_torch.kernels.{mod_name}"
+        if importlib.util.find_spec(name) is None:    # an older checkout
+            continue
+        mod = importlib.import_module(name)
+        real = getattr(mod, attr)
+        sig = inspect.signature(real)
+
+        def wrapper(*args, _real=real, _sig=sig, _key=key, **kw):
+            out = _real(*args, **kw)
+            if _on_card(args[0]):
+                bound = _sig.bind(*args, **kw)
+                bound.apply_defaults()
+                with lock:
+                    calls[_key].append((_clone(dict(bound.arguments)),
+                                        _clone(out)))
+            return out
+
+        setattr(mod, attr, wrapper)
+        saved.append((mod, attr, real))
+    try:
+        yield calls
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
+def hold_recorded(label, calls, launches) -> None:
+    """Hold each recorded call of a path against its kernel's plain
+    version, at the tolerances of phase 2, and print what was held; every
+    launch the path counted must have been recorded."""
+    out = []
+    for key, held in calls.items():
+        check(len(held) == launches.get(key, 0), f"{label}: {len(held)} "
+              f"{key} calls recorded, {launches.get(key, 0)} launched")
+        diffs = []
+        for i, (a, res) in enumerate(held):
+            what = f"{label} call {i}"
+            if key == "fold":
+                diffs.append(hold_fold(what, a["dt"], a["deltas"],
+                                       a["carry"], res)["diff"])
+            elif key == "carry_cumsum":
+                diffs.append(hold_carry_cumsum(
+                    what, a["contrib"], a["idle_contrib"], a["carry"],
+                    res)["diff"])
+            elif key == "hist":
+                diffs.append(hold_hist(what, a["tags"], a["weights"],
+                                       a["num_bins"], res))
+            else:
+                bit_equal, err, n_rows = hold_stream(
+                    what, a["times_s"], a["workers"], a["deltas"],
+                    a["num_workers"], res)
+                print(f"[held] {what}: stream E={a['times_s'].shape[0]}, "
+                      f"{n_rows} rows, bit-equal {bit_equal}, max_abs_err "
+                      f"{err:.3e}")
+                diffs.append(err)
+        if held:
+            out.append(f"{key} {len(held)} calls (max |kernel - plain| "
+                       f"{max(diffs):.3e})")
+    print(f"[held] {label}: against the plain versions on the same inputs: "
+          f"{', '.join(out) or 'no calls'}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -466,7 +740,6 @@ def main(argv=None) -> int:
     from repro_torch.core import detect_offline, export
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import cmetric_fold as fold_k
-    from repro_torch.kernels import tag_hist as hist_k
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -541,32 +814,35 @@ def main(argv=None) -> int:
     check_hist(rows, torch.from_numpy(tg).to(dev), wt, k,
                f"S={s} K={k} skewed 90% in 64 bins", REPEATS)
     del tg, wt
+    # (another checkout, under --src, may predate the stream kernel)
+    if importlib.util.find_spec("repro_torch.kernels.stream_scan"):
+        check_stream(rows, log, dev)
     torch.cuda.empty_cache()
 
     # -- phase 3: the main path -----------------------------------------------
-    # The keys the detector hands tag_hist are recorded on the way, for the
-    # histogram's main-path row below.
-    recorded = []
-    real_hist = hist_k.hist
-
-    def recording_hist(tags_, weights=None, **kw):
-        if not recorded:
-            recorded.append((tags_.clone(), weights, kw["num_bins"]))
-        return real_hist(tags_, weights, **kw)
-
-    hist_k.hist = recording_hist
-    if args.kernels_only:
-        detect_offline(log, tags, stacks, n_min, samples=samples,
-                       backend="fused")
-    else:
-        t = time.perf_counter()
-        ref_rep = detect_offline(log, tags, stacks, n_min, samples=samples,
-                                 backend="numpy", chunk_events=1 << 20)
-        print(f"[main] numpy chunked oracle: {time.perf_counter() - t:.2f} s")
-        launches = main_path(log, tags, stacks, n_min, samples, ref_rep, e,
+    # Every kernel call is recorded on the way: each is held against its
+    # plain version after the run, and the keys the detector handed
+    # tag_hist give the histogram's main-path row below.
+    with recording() as calls:
+        if args.kernels_only:
+            detect_offline(log, tags, stacks, n_min, samples=samples,
+                           backend="fused")
+        else:
+            t = time.perf_counter()
+            ref_rep = detect_offline(log, tags, stacks, n_min,
+                                     samples=samples, backend="numpy",
+                                     chunk_events=1 << 20)
+            print(f"[main] numpy chunked oracle: "
+                  f"{time.perf_counter() - t:.2f} s")
+            runs = main_path(log, tags, stacks, n_min, samples, ref_rep, e,
                              detect_offline, export, ops)
-    hist_k.hist = real_hist
-    keys, weights, k = recorded[0]
+    if not args.kernels_only:
+        hold_recorded("fused whole-log and chunked", calls, {
+            key: runs["whole-log"][key] + runs["chunked"][key]
+            for key in runs["chunked"]})
+    first = calls["hist"][0][0]
+    keys, weights, k = first["tags"], first["weights"], first["num_bins"]
+    del calls
     check(weights is None, "the detector weighed its key histogram")
     check_hist(rows, keys, None, k,
                f"S={keys.shape[0]} K={k} main-path keys, no weights", 200)
@@ -574,8 +850,14 @@ def main(argv=None) -> int:
     if args.kernels_only:
         print(json.dumps({"kernels": list(rows.rows.values())}))
         return 0
+    runs["stream"] = stream_path(log, tags, stacks, n_min, samples, ref_rep,
+                                 e, detect_offline, ops)
+    runs.update(session_paths(log, tags, stacks, n_min, samples, ref_rep, e,
+                              export, ops))
+    runs["live session"] = live_path(ops)
+    runs["fleet"] = fleet_path(ops)
     for key, row in rows.rows.items():
-        row["launches"] = launches[key]
+        row["launches"] = sum(r[key] for r in runs.values())
     if args.profile:
         for label, chunk in (("whole-log", None), ("chunked", 1 << 20)):
             profile_main_path(label, lambda chunk=chunk: detect_offline(
@@ -584,8 +866,8 @@ def main(argv=None) -> int:
     print(f"[main] whole script {time.perf_counter() - t_script:.1f} s")
 
     print(smi)
-    print(json.dumps({"kernels": [rows.rows["fold"], rows.rows["carry_cumsum"],
-                                  rows.rows["hist"]]}))
+    print(json.dumps({"kernels": [rows.rows[k] for k in (
+        "fold", "carry_cumsum", "hist", "stream")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -595,8 +877,8 @@ def main(argv=None) -> int:
 def main_path(log, tags, stacks, n_min, samples, ref_rep, e, detect_offline,
               export, ops) -> dict:
     """``detect_offline`` fused, whole-log and chunked, each checked against
-    the float64 oracle ``ref_rep``; returns each kernel's launches over the
-    two runs, counted from 0 just before each run and read just after."""
+    the float64 oracle ``ref_rep``; returns each run's kernel launches,
+    counted from 0 just before the run and read just after."""
     import torch
     runs = {}
     for label, chunk in (("whole-log", None), ("chunked", 1 << 20)):
@@ -609,45 +891,318 @@ def main_path(log, tags, stacks, n_min, samples, ref_rep, e, detect_offline,
         secs = time.perf_counter() - t
         launches = ops.launch_counts()
         runs[label] = launches
-        attached = sum(sum(p.tag_counts.values()) for p in rep.paths)
         print(f"[main] fused {label}: {secs:.3f} s, {e / secs:.4g} events/s, "
-              f"{rep.total_slices} slices, {rep.total_critical} critical, "
-              f"{attached} samples attached in the top paths, "
               f"launches {launches}")
-        check(rep.total_slices == ref_rep.total_slices,
-              f"{label}: slice count {rep.total_slices} vs "
-              f"{ref_rep.total_slices}")
-        pw, pr = rep.per_worker, ref_rep.per_worker
-        worst = float(np.max(np.abs(pw - pr) / np.abs(pr)))
-        check(np.all(np.isfinite(pw)) and pw.shape == pr.shape,
-              f"{label}: per-worker CMetric not finite or misshapen")
-        check(np.allclose(pw, pr, rtol=1e-3, atol=0.0),
-              f"{label}: per-worker CMetric off by {worst:.3e} (rtol 1e-3)")
-        a, b = _critical_keys(rep.critical_table), _critical_keys(
-            ref_rep.critical_table)
-        flips = len(a ^ b)
-        print(f"[main] fused {label} vs float64 oracle: per-worker max rel "
-              f"err {worst:.3e}, critical-set flips {flips} of "
-              f"{rep.total_slices} slices "
-              f"({100.0 * flips / rep.total_slices:.5f}%)")
-        check(flips < 1e-3 * rep.total_slices, f"{label}: too many flips")
-        check(rep.total_critical >= 100_000 and attached >= 100_000,
-              f"{label}: fewer than 1e5 critical slices or samples")
-        check(rep.paths[0].stack == INJECTED_PATH,
-              f"{label}: top path {rep.path_str(rep.paths[0])}")
-        check(ref_rep.paths[0].stack == INJECTED_PATH, "oracle top path")
-        doc = json.loads(export(rep, "json"))
-        check(bool(doc["paths"]) and bool(export(rep, "text")),
-              f"{label}: empty export")
-        print(f"[main] fused {label} top path: {rep.path_str(rep.paths[0])} "
-              f"{rep.paths[0].cmetric:.6f} s CMetric "
-              f"(oracle {ref_rep.paths[0].cmetric:.6f} s)")
+        check_report(f"fused {label}", rep, ref_rep, export)
     whole, chunked = runs["whole-log"], runs["chunked"]
     check(whole["fold"] >= 1 and whole["hist"] >= 1,
           f"whole-log run launched {whole}")
     check(chunked["carry_cumsum"] >= 1 and chunked["hist"] >= 1,
           f"chunked run launched {chunked}")
-    return {key: whole[key] + chunked[key] for key in whole}
+    return runs
+
+
+def check_report(label, rep, ref_rep, export) -> None:
+    """A report of the capture against the float64 oracle's: equal slice
+    counts, per-worker CMetric to rtol 1e-3, critical-set flips under 0.1%,
+    the injected path first, non-empty exports."""
+    attached = sum(sum(p.tag_counts.values()) for p in rep.paths)
+    print(f"[main] {label}: {rep.total_slices} slices, {rep.total_critical} "
+          f"critical, {attached} samples attached in the top paths")
+    check(rep.total_slices == ref_rep.total_slices,
+          f"{label}: slice count {rep.total_slices} vs "
+          f"{ref_rep.total_slices}")
+    pw, pr = rep.per_worker, ref_rep.per_worker
+    worst = float(np.max(np.abs(pw - pr) / np.abs(pr)))
+    check(np.all(np.isfinite(pw)) and pw.shape == pr.shape,
+          f"{label}: per-worker CMetric not finite or misshapen")
+    check(np.allclose(pw, pr, rtol=1e-3, atol=0.0),
+          f"{label}: per-worker CMetric off by {worst:.3e} (rtol 1e-3)")
+    a, b = _critical_keys(rep.critical_table), _critical_keys(
+        ref_rep.critical_table)
+    flips = len(a ^ b)
+    print(f"[main] {label} vs float64 oracle: per-worker max rel "
+          f"err {worst:.3e}, critical-set flips {flips} of "
+          f"{rep.total_slices} slices "
+          f"({100.0 * flips / rep.total_slices:.5f}%)")
+    check(flips < 1e-3 * rep.total_slices, f"{label}: too many flips")
+    check(rep.total_critical >= 100_000 and attached >= 100_000,
+          f"{label}: fewer than 1e5 critical slices or samples")
+    check(rep.paths[0].stack == INJECTED_PATH,
+          f"{label}: top path {rep.path_str(rep.paths[0])}")
+    check(ref_rep.paths[0].stack == INJECTED_PATH, "oracle top path")
+    doc = json.loads(export(rep, "json"))
+    check(bool(doc["paths"]) and bool(export(rep, "text")),
+          f"{label}: empty export")
+    print(f"[main] {label} top path: {rep.path_str(rep.paths[0])} "
+          f"{rep.paths[0].cmetric:.6f} s CMetric "
+          f"(oracle {ref_rep.paths[0].cmetric:.6f} s)")
+
+
+def stream_path(log, tags, stacks, n_min, samples, ref_rep, e,
+                detect_offline, ops) -> dict:
+    """``detect_offline`` with the ``stream`` backend, whole-log: its one
+    ``stream_scan`` call held against the plain version on the same 2^24
+    inputs, the slice count equal to the oracle's and every value finite.
+    Its float32 error against the float64 oracle and its top path are
+    printed, not held to a limit.  Returns the run's kernel launches."""
+    import torch
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with recording() as calls:
+        rep = detect_offline(log, tags, stacks, n_min, samples=samples,
+                             backend="stream")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ops.launch_counts()
+    hold_recorded("stream whole-log", calls, launches)
+    check(len(calls["stream"]) == 1 and calls["stream"][0][0][
+        "times_s"].shape[0] == e, "stream: not one whole-capture call")
+    print(f"[main] stream whole-log: {secs:.3f} s, {e / secs:.4g} events/s, "
+          f"{rep.total_slices} slices, {rep.total_critical} critical, "
+          f"launches {launches}")
+    check(launches["stream"] >= 1, f"stream run launched {launches}")
+    check(rep.total_slices == ref_rep.total_slices,
+          f"stream: slice count {rep.total_slices} vs {ref_rep.total_slices}")
+    ct = rep.critical_table
+    check(np.all(np.isfinite(rep.per_worker))
+          and all(np.all(np.isfinite(getattr(ct, c)))
+                  for c in ("cm", "threads_av")),
+          "stream: a value is not finite")
+    pw, pr = rep.per_worker, ref_rep.per_worker
+    print(f"[main] stream vs float64 oracle (printed, no limit): per-worker "
+          f"max rel err {float(np.max(np.abs(pw - pr) / np.abs(pr))):.3e}; "
+          f"top path {rep.path_str(rep.paths[0])} "
+          f"{rep.paths[0].cmetric:.6f} s CMetric (oracle "
+          f"{ref_rep.path_str(ref_rep.paths[0])} "
+          f"{ref_rep.paths[0].cmetric:.6f} s)")
+    return launches
+
+
+def session_paths(log, tags, stacks, n_min, samples, ref_rep, e, export,
+                  ops) -> dict:
+    """An offline fused session over the capture, and the capture spilled
+    to a ``SpillStore`` and replayed through ``SpillSource`` into a fused
+    session, each checked like the main path, with every kernel call held
+    against its plain version.  Returns each run's kernel launches."""
+    import torch
+    from repro_torch.core import ProfileSession, SpillSource, SpillStore
+    runs = {}
+
+    def run(label, make):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording() as calls:
+            sess = make()
+            rep = sess.result()
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = ops.launch_counts()
+        runs[label] = launches
+        hold_recorded(label, calls, launches)
+        print(f"[session] {label}: {secs:.3f} s, {e / secs:.4g} events/s, "
+              f"device {sess.device}, launches {launches}")
+        check(sess.device.type == "cuda" and sess.fold_backend == "fused",
+              f"{label}: ran on {sess.device} / {sess.fold_backend}")
+        check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+              f"{label} launched {launches}")
+        check_report(label, rep, ref_rep, export)
+
+    run("offline session", lambda: ProfileSession.offline(
+        log, tags, stacks, n_min=n_min, samples=samples, backend="fused",
+        chunk_events=1 << 20))
+    with tempfile.TemporaryDirectory(prefix="gapp-smoke-") as d:
+        path = os.path.join(d, "capture.gappspill")
+        t = time.perf_counter()
+        store = SpillStore(path, chunk_events=1 << 20)
+        store.append_columns(log.times, log.workers, log.deltas, log.tags,
+                             log.stacks)
+        store.close()
+        print(f"[session] spill of {e} rows: {os.path.getsize(path)} bytes "
+              f"written in {time.perf_counter() - t:.3f} s")
+        run("spill replay", lambda: ProfileSession(
+            SpillSource(path, log.num_workers, tags, stacks,
+                        chunk_events=1 << 20),
+            n_min=n_min, samples=samples, chunk_events=1 << 20))
+    return runs
+
+
+def get_url(addr, path: str) -> bytes:
+    with urllib.request.urlopen(f"http://{addr[0]}:{addr[1]}{path}",
+                                timeout=60) as r:
+        return r.read()
+
+
+def _live_run(n_threads):
+    """The live workload of :func:`live_path`: returns the session, its
+    mid-run snapshot, its result and its drains."""
+    from repro_torch.core import ProfileSession
+    s = ProfileSession(n_min=None, dt=0.001)
+    check(s.device.type == "cuda" and s.fold_backend == "fused",
+          f"live session on {s.device} / {s.fold_backend}")
+    drains = []
+    s.tracer.on_drain.append(drains.append)
+    lock = threading.Lock()
+    wids = [s.register_worker(f"worker{i}") for i in range(n_threads)]
+    go = threading.Barrier(n_threads + 1)
+    errors = []
+
+    def worker(i):
+        try:
+            go.wait(timeout=60)
+            for _ in range(10):
+                with s.span(wids[i], "parallel_compute"):
+                    time.sleep(0.004)
+                if i == 0:
+                    with s.span(wids[i], "write_output"):
+                        with lock:
+                            time.sleep(0.012)
+        except Exception as e:      # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    with s.running():
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        go.wait(timeout=60)
+        time.sleep(0.05)
+        mid = s.snapshot()          # the workload is still running
+        for th in threads:
+            th.join(timeout=120)
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"live workload failed: {errors}")
+    return s, mid, s.result(), drains
+
+
+def live_path(ops) -> dict:
+    """A live fused session on the card over 32 threads (quickstart's
+    shape: worker 0 also holds a lock-protected ``write_output`` section
+    three times as long as the parallel phase), with a snapshot mid-run;
+    its result against the ``numpy`` backend offline on the frozen log,
+    its ``/api/report`` against ``export("json")``.  Returns the run's
+    kernel launches."""
+    import torch
+    from repro_torch.core import detect_offline
+    n_threads = 32
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with recording() as calls:
+        s, mid, rep, drains = _live_run(n_threads)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ops.launch_counts()
+    hold_recorded("live session", calls, launches)
+    st = s.stats()
+    print(f"[live] {n_threads} threads: {secs:.3f} s, mid-run snapshot "
+          f"{mid.total_slices} slices, final {rep.total_slices} slices, "
+          f"{st['events_folded']} events folded in {len(drains)} drains, "
+          f"{st['samples']['stored']} samples, launches {launches}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"live session launched {launches}")
+    oracle = detect_offline(
+        s.freeze(), s.tags, s.stacks, s._resolved_n_min(),
+        samples=s.probe.buffer if len(s.probe.buffer) else None,
+        backend="numpy", worker_names=s.tracer.worker_names())
+    check(rep.total_slices == oracle.total_slices == 10 * n_threads + 10,
+          f"live: slices {rep.total_slices} vs oracle {oracle.total_slices}")
+    check(np.allclose(rep.per_worker, oracle.per_worker, rtol=1e-3, atol=0.0),
+          "live: per-worker CMetric beyond rtol 1e-3 of the oracle")
+    top = rep.path_str(rep.paths[0])
+    check("write_output" in top, f"live: top path {top}")
+    print(f"[live] top path {top} {rep.paths[0].cmetric:.6f} s CMetric "
+          f"(oracle {oracle.path_str(oracle.paths[0])} "
+          f"{oracle.paths[0].cmetric:.6f} s)")
+    svc = s.serve()
+    try:
+        body = get_url(svc.address, "/api/report")
+    finally:
+        svc.close()
+    check(body == s.export("json").encode("utf-8"),
+          "live: /api/report differs from export('json')")
+    return launches
+
+
+def fleet_path(ops) -> dict:
+    """The fleet_dashboard example's flow on the card: two producer hosts
+    (fused live sessions, one with a serial ``commit_txn`` section) stream
+    through ``RemoteSink``s into an ``IngestServer`` with a fleet_dir, and
+    a fused session folds its ``FleetSource``.  ``/api/report`` against
+    ``export("json")``; then, served from the fleet_dir, ``/api/whatif``
+    against the offline ``what_if(...).to_json()``.  Returns the run's
+    kernel launches."""
+    from repro_torch.core import ProfileSession
+    from repro_torch.device import default_device
+    from repro_torch.examples.fleet_dashboard import run_host
+    from repro_torch.fleet import FleetSource, IngestServer, ProfilerService
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    errors = []
+    dev = default_device()          # the hosts' threads get it explicitly
+
+    def host(name):
+        try:
+            run_host(name, server.address, name == "db-1", dev)
+        except Exception as e:      # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    with recording() as calls:
+        with tempfile.TemporaryDirectory(prefix="gapp-smoke-fleet-") as d:
+            fleet_dir = os.path.join(d, "fleet")
+            server = IngestServer(fleet_dir=fleet_dir)
+            server.start()
+            try:
+                fleet = ProfileSession(server.source, n_min=2.0)
+                fleet.start()
+                hosts = [threading.Thread(target=host, args=(name,))
+                         for name in ("web-0", "db-1")]
+                for th in hosts:
+                    th.start()
+                for th in hosts:
+                    th.join(timeout=120)
+                check(not errors and not any(th.is_alive() for th in hosts),
+                      f"fleet hosts failed: {errors}")
+                check(server.wait_idle(60),
+                      f"ingest not idle: {server.stats()}")
+                rep = fleet.result()
+                svc = fleet.serve(server=server)
+                try:
+                    body = get_url(svc.address, "/api/report")
+                finally:
+                    svc.close()
+            finally:
+                server.close()
+            check(fleet.device.type == "cuda"
+                  and fleet.fold_backend == "fused", f"fleet session on "
+                  f"{fleet.device} / {fleet.fold_backend}")
+            check(body == fleet.export("json").encode("utf-8"),
+                  "fleet: /api/report differs from export('json')")
+            top = rep.path_str(rep.paths[0])
+            check("commit_txn" in top and sorted(rep.per_host()) == [
+                "db-1", "web-0"], f"fleet: top path {top}, hosts "
+                  f"{sorted(rep.per_host())}")
+            off = ProfilerService.from_fleet_dir(fleet_dir, n_min=2.0).start()
+            try:
+                wbody = get_url(off.address,
+                                "/api/whatif?tag=commit_txn&shrink=0")
+            finally:
+                off.close()
+            offline = ProfileSession(FleetSource.from_fleet_dir(fleet_dir),
+                                     n_min=2.0).result()
+            want = offline.what_if("commit_txn", shrink=0.0)
+            check(wbody == want.to_json().encode("utf-8"),
+                  "fleet: /api/whatif differs from the offline what_if")
+    launches = ops.launch_counts()
+    hold_recorded("fleet", calls, launches)
+    print(f"[fleet] 2 hosts: {time.perf_counter() - t:.3f} s, "
+          f"{rep.total_slices} slices, top path {top} "
+          f"{rep.paths[0].cmetric:.6f} s CMetric, what-if commit_txn x0 "
+          f"speedup {want.speedup:.4f}, launches {launches}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"fleet launched {launches}")
+    return launches
 
 
 if __name__ == "__main__":

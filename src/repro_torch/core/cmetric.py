@@ -11,10 +11,14 @@ trick)::
     cm_hash[w]       += global_cm - local_cm[w]             # on switch-out
     local_cm[w]       = global_cm                           # on switch-in
 
-Three implementations, equivalent up to float tolerance, registered in the
+Four implementations, equivalent up to float tolerance, registered in the
 :mod:`repro_torch.core.backends` registry:
 
 * ``numpy``  — :func:`compute_numpy`, float64 oracle (reference for all).
+* ``stream`` — :func:`compute_streaming`, paper-faithful event-at-a-time
+  walk maintaining exactly the eBPF-map state of Table 1, in float32, on
+  the CUDA ``stream_scan`` kernel (one launch, one thread walking the
+  events in order).
 * ``vector`` — :func:`compute_vectorized`, beyond-paper data-parallel
   formulation in torch (cumsum + stable-sort pairing + index_add) on the
   default device.  O(E log E) work but fully parallel.
@@ -22,9 +26,6 @@ Three implementations, equivalent up to float tolerance, registered in the
   CUDA ``cmetric_fold`` kernel; fold, pairing and aggregation run on the
   device with no host round-trip between stages.  It is also registered as
   ``pallas``, the name of its counterpart in the JAX package.
-
-The JAX package's ``stream`` backend (an event-at-a-time ``lax.scan``) has
-no counterpart yet; :func:`_prefix_f32_seq` is kept for it.
 
 All backends emit a :class:`~repro_torch.core.slices.SliceTable`;
 :class:`CMetricResult` is a thin wrapper over it.
@@ -186,6 +187,32 @@ def compute_numpy(log: EventLog) -> CMetricResult:
             count -= 1
     return _make_result(log, cm, sw, ss, se, sc, sa, sk, sn, idle,
                         t[-1] - t[0])
+
+
+# ---------------------------------------------------------------------------
+# paper-faithful streaming walk (the stream_scan kernel)
+# ---------------------------------------------------------------------------
+
+def compute_streaming(log: EventLog) -> CMetricResult:
+    """Paper-faithful streaming CMetric (float32, event order) on the
+    ``stream_scan`` kernel, on the default device."""
+    e = len(log)
+    if e == 0:
+        return _empty_result(log.num_workers)
+    # Lazy import as for _compute_fused.
+    from repro_torch.kernels import ops
+    dev = device_lib.resolve()
+    t32 = log.slice_seconds().astype(np.float32)
+    is_out = ~(log.deltas > 0)
+    cm, idle, _, rows = ops.stream_scan(
+        torch.from_numpy(t32).to(dev),
+        torch.from_numpy(np.ascontiguousarray(log.workers, np.int32)).to(dev),
+        torch.from_numpy(log.deltas.astype(np.int32)).to(dev),
+        log.num_workers)
+    wi, s_start, s_end, s_cm, s_av, s_n = (r.cpu().numpy() for r in rows)
+    return _make_result(log, cm.cpu().numpy(), wi, s_start, s_end, s_cm,
+                        s_av, log.stacks[is_out], s_n, float(idle),
+                        t32[-1] - t32[0])
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +559,9 @@ def _make_fold_chunk(prefix):
 register_backend("numpy", compute_numpy,
                  capabilities={"oracle", "float64", "exact"},
                  fold_chunk=_make_fold_chunk(_prefix_exact))
+register_backend("stream", compute_streaming,
+                 capabilities={"device", "sequential", "paper-faithful"},
+                 fold_chunk=_make_fold_chunk(_prefix_f32_seq))
 register_backend("vector", compute_vectorized,
                  capabilities={"device", "parallel"},
                  fold_chunk=_make_fold_chunk(_prefix_vector))

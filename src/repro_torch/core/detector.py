@@ -386,12 +386,15 @@ def detect(
     samples: SampleBuffer | None = None,
     top_n: int = 10,
     budgeted: bool = False,
+    hist_device: torch.device | None = None,
 ) -> BottleneckReport:
     """Live-mode detection from the tracer's batched online state (one
     ``snapshot()``: pending shard events are drained and folded once, and
     every reported number comes from the same sync point).  ``budgeted``
     caps that flush at the tracer's ``max_rows_per_sync`` decode budget —
-    bounded latency, possibly lagging the capture by the backlog."""
+    bounded latency, possibly lagging the capture by the backlog.
+    ``hist_device`` runs the (path, tag) histogram on the ``tag_hist``
+    kernel there (the live session's fused backend on CUDA)."""
     n_min = tracer._resolved_n_min()
     # keyword only when asked: LockedTracer's snapshot has no budget
     snap = tracer.snapshot(budgeted=True) if budgeted else tracer.snapshot()
@@ -406,6 +409,7 @@ def detect(
         idle_time=snap["idle_time"],
         total_time=snap["total_time"],
         top_n=top_n,
+        hist_device=hist_device,
     )
     from repro_torch.core.whatif import ReplaySpec
     rep.replay = ReplaySpec(

@@ -47,9 +47,9 @@ class Exporter:
 _REGISTRY: dict[str, Exporter] = {}
 
 # Exporters that live in optional packages: resolved on first use so the
-# core never imports them eagerly.  The port has no fleet package yet, so
-# no ``"remote"`` exporter is listed here.
-_LAZY_EXPORTERS: dict[str, str] = {}
+# core never imports them eagerly (``session.export("remote", addr=...)``
+# just works without an explicit ``import repro_torch.fleet``).
+_LAZY_EXPORTERS = {"remote": "repro_torch.fleet.transport"}
 
 
 def register_exporter(name: str, fn: ExporterFn | None = None, *,
@@ -175,7 +175,7 @@ def _export_watch(rep, *, session=None, callback=None, every: float = 0.5,
     (plus one final report at close).  Returns the unsubscribe handle.
     ``payload=True`` delivers the JSON-ready ``/api/stream`` frame (with
     ``worker_hosts``/``per_host`` lanes and ``health``) instead of the
-    report object."""
+    report object — see :func:`repro_torch.obs.payload.build_watch_payload`."""
     if session is None or callback is None:
         raise ValueError("watch exporter needs session= and callback=")
     return session.watch(callback, every=every, top_n=top_n,

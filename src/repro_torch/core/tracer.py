@@ -56,6 +56,7 @@ from typing import Iterator
 
 import numpy as np
 
+from repro_torch import device as device_lib
 from repro_torch.core import backends as backends_lib
 from repro_torch.core.events import (ACTIVATE, DEACTIVATE, NO_STACK, NO_TAG,
                                EventLog, EventRing, EventStore,
@@ -166,7 +167,12 @@ class Tracer:
 
     ``capacity`` is per worker shard.  ``fold_backend`` selects the
     registered chunk fold that maintains the online state (``"numpy"`` is
-    the bit-exact float64 default); ``autoflush=False`` disables the
+    the bit-exact float64 default).  ``device`` is where a device fold
+    backend runs: resolved once here (default:
+    :func:`repro_torch.device.default_device`; CUDA without a card raises)
+    and held for every drain, whichever thread runs it — a producer's
+    autoflush or a session's worker.  A host fold backend (``numpy``)
+    resolves no device unless given one.  ``autoflush=False`` disables the
     opportunistic flush when a shard fills, so a full shard drops new
     events (counted) like a BPF ring buffer.
 
@@ -182,10 +188,16 @@ class Tracer:
     def __init__(self, n_min: float | None = None, top_m: int = 8,
                  capacity: int = 1 << 16, clock=time.perf_counter_ns,
                  fold_backend: str = "numpy", autoflush: bool = True,
-                 store=None, max_rows_per_sync: int | None = None):
+                 store=None, max_rows_per_sync: int | None = None,
+                 device=None):
         self.n_min = n_min              # None => total_count/2, resolved lazily
         self.clock = clock
         self.fold_backend = fold_backend
+        from repro_torch.core.cmetric import FoldCarry  # deferred: import cycle
+        on_device = "device" in backends_lib.get_backend(
+            fold_backend).capabilities
+        self.device = (device_lib.resolve(device)
+                       if on_device or device is not None else None)
         self.autoflush = autoflush
         # per-shard decode budget of one flush: caps the Python decode loop
         # a single sync (and therefore a mid-capture snapshot) can run, so a
@@ -198,7 +210,6 @@ class Tracer:
         self._handles: list[WorkerHandle] = []    # guarded-by: self._reg_lock
         # Table-1 eBPF-map state lives in the fold carry; it advances only
         # at flush time, by replaying drained batches through fold_chunk.
-        from repro_torch.core.cmetric import FoldCarry  # deferred: import cycle
         self._carry = FoldCarry.init(0)           # guarded-by: self._fold_lock
         self._store = store if store is not None else EventStore()
         # extra chunk consumers (e.g. a fleet RemoteSink): every
@@ -377,8 +388,9 @@ class Tracer:
             return drained
         stacks_col = np.full(times.shape[0], NO_STACK, np.int32)
         clog = EventLog(times, workers, deltas, tags, stacks_col, w_count)
-        self._carry, table = backends_lib.fold_chunk(
-            carry, clog, backend=self.fold_backend)
+        with device_lib.use_device(self.device):
+            self._carry, table = backends_lib.fold_chunk(
+                carry, clog, backend=self.fold_backend)
         # §4.2: intern call paths for critical timeslices only
         crit_mask = table.threads_av < self._resolved_n_min()
         if crit_mask.any():

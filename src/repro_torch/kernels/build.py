@@ -22,7 +22,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = {"cmetric_fold": "cmetric_fold.cu", "tag_hist": "tag_hist.cu"}
+SOURCES = {"cmetric_fold": "cmetric_fold.cu", "tag_hist": "tag_hist.cu",
+           "stream_scan": "stream_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,11 @@ SIGNATURES = {
     "tag_hist": {
         "gapp_tag_hist": [_P, _P, _LL, _I, _P, _P, _P, _I, _P],
         "gapp_tag_hist_path": [_I, _I],
+    },
+    "stream_scan": {
+        "gapp_stream_smem_workers": [],
+        "gapp_stream_scan": [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _LL, _P],
     },
 }
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import cmetric_fold as _fold
+from repro_torch.kernels import stream_scan as _stream
 from repro_torch.kernels import tag_hist as _hist
 
 
@@ -51,6 +52,13 @@ def tag_histogram(tags, weights=None, *, num_bins: int):
     return _hist.hist(tags, weights, num_bins=num_bins)
 
 
+def stream_scan(times_s, workers, deltas, num_workers: int):
+    """The paper-faithful sequential CMetric walk on the ``stream_scan``
+    kernel: ``(cm f32[W], idle, gcm, slice rows)``, see
+    :func:`repro_torch.kernels.stream_scan.stream_scan`."""
+    return _stream.stream_scan(times_s, workers, deltas, num_workers)
+
+
 def _fused_pipeline(times_s, workers, deltas, num_workers: int):
     """The fold kernel followed by pairing and per-worker aggregation, all
     on the device: the gcm prefix and the active counts never leave it
@@ -71,10 +79,10 @@ def compute_fused(log):
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {**_fold.LAUNCHES, **_hist.LAUNCHES}
+    return {**_fold.LAUNCHES, **_hist.LAUNCHES, **_stream.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_fold.LAUNCHES, _hist.LAUNCHES):
+    for counts in (_fold.LAUNCHES, _hist.LAUNCHES, _stream.LAUNCHES):
         for k in counts:
             counts[k] = 0

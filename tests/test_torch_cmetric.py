@@ -142,14 +142,15 @@ def test_chunked_equals_whole_log(backend, splits):
 
 
 def test_registry_defaults_and_aliases():
-    assert set(backends.available_backends()) == {"numpy", "vector", "fused",
-                                                  "pallas"}
+    assert set(backends.available_backends()) == {"numpy", "stream",
+                                                  "vector", "fused", "pallas"}
     fused, alias = backends.get_backend("fused"), backends.get_backend(
         "pallas")
     assert fused.capabilities == alias.capabilities == {
         "device", "parallel", "fused", "gpu"}
     assert fused.fn is alias.fn and alias.chunk_fn is not None
-    assert "stream" not in backends.available_backends()
+    assert backends.get_backend("stream").capabilities == {
+        "device", "sequential", "paper-faithful"}
     import inspect
     assert inspect.signature(cmetric.compute).parameters[
         "backend"].default == "fused"

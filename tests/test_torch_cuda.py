@@ -7,7 +7,8 @@ float64 prefix, bins on both sides of every threshold of the
 histogram's paths and each path reached through K, skewed and
 all-in-one-bin keys, and inputs that are not 16-byte aligned.  Tolerances: ``n`` and counts exact; float prefixes rtol 1e-5
 (both are float32 scans, summed in another order); weighted histogram
-rtol 1e-4 (float atomics in a varying order).  Each test needs a CUDA card
+rtol 1e-4 (float atomics in a varying order); the stream scan exact (the
+same float32 operations in the same order).  Each test needs a CUDA card
 and skips without one; run them there with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -299,3 +300,145 @@ def test_cuda_fused_detect_offline_matches_oracle(cuda_device, chunk_events):
     assert rep.paths[0].stack == chip_smoke.INJECTED_PATH
     assert [dict(p.tag_counts) for p in rep.paths] == [
         dict(p.tag_counts) for p in ref_rep.paths]
+
+
+def _stream_inputs(num_workers, slices, seed, dev):
+    """A sanitized synthetic log's columns for ``stream_scan`` on ``dev``,
+    and the log."""
+    from repro_torch.core.events import synthetic_log
+    log = synthetic_log(np.random.default_rng(seed), num_workers,
+                        slices).sanitize()
+    cols = (torch.from_numpy(log.slice_seconds().astype(np.float32)),
+            torch.from_numpy(log.workers.astype(np.int32)),
+            torch.from_numpy(log.deltas.astype(np.int32)))
+    return [c.to(dev) for c in cols], log
+
+
+def _check_stream(k, p):
+    """The kernel and its plain version do the same float32 operations in
+    the same order: every output is equal, not merely close."""
+    assert torch.equal(k[0].cpu(), p[0].cpu())
+    assert float(k[1]) == float(p[1]) and float(k[2]) == float(p[2])
+    for a, b in zip(k[3], p[3]):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("num_workers,slices", [
+    (1, 1), (3, 682), (1, 2048), (2, 1025), (4, 513), (64, 40), (1000, 9),
+    (8, 4097), (1024, 2048)])
+def test_cuda_stream_matches_plain(cuda_device, num_workers, slices):
+    """4,092-4,104 events lie on the edge of one 4,096-event tile, 65,552
+    span 17 tiles; 1,000 workers take 12 KB of shared state; 1,024 x 2,048
+    is 2^22 events, 1,024 tiles."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), log = _stream_inputs(num_workers, slices, slices, cuda_device)
+    before = stream_k.LAUNCHES["stream"]
+    k = stream_k.stream_scan(t, w, d, num_workers)
+    assert stream_k.LAUNCHES["stream"] == before + 1
+    p = ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), num_workers)
+    torch.cuda.synchronize()
+    assert k[3][0].shape[0] == int((log.deltas <= 0).sum())
+    _check_stream(k, p)
+
+
+def test_cuda_stream_state_above_the_shared_memory_limit(cuda_device):
+    """More workers than the shared state holds: the state goes to the
+    global scratch array, with the same results."""
+    from repro_torch.kernels import stream_scan as stream_k
+    w_count = stream_k.smem_workers() + 3
+    (t, w, d), _ = _stream_inputs(w_count, 2, 7, cuda_device)
+    k = stream_k.stream_scan(t, w, d, w_count)
+    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), w_count))
+
+
+def test_cuda_stream_back_to_back(cuda_device):
+    """Calls queued on one stream without a synchronise, on different logs
+    and worker counts, each with its own outputs and state."""
+    from repro_torch.kernels import stream_scan as stream_k
+    inputs = [_stream_inputs(nw, 50, nw, cuda_device)[0]
+              for nw in (2, 5, 17, 5, 2)]
+    outs = [stream_k.stream_scan(t, w, d, nw)
+            for (t, w, d), nw in zip(inputs, (2, 5, 17, 5, 2))]
+    torch.cuda.synchronize()
+    for (t, w, d), nw, k in zip(inputs, (2, 5, 17, 5, 2), outs):
+        _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), nw))
+
+
+def test_cuda_stream_launch_replays_from_a_cuda_graph(cuda_device):
+    """``launch`` (the kernel alone, into outputs ``stream_scan``
+    allocated) captured in a CUDA graph gives the plain version's results
+    on replay."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), _ = _stream_inputs(64, 300, 4, cuda_device)
+    out = stream_k.stream_scan(t, w, d, 64)
+    for x in (out[0], out[1], *out[3]):
+        x.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):   # the eager call above was the warm-up
+        stream_k.launch(t, w, d, 64, out)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_stream(out, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), 64))
+
+
+@pytest.mark.parametrize("bad_id", [-1, 5])
+def test_cuda_stream_rejects_worker_ids_outside_the_range(cuda_device,
+                                                          bad_id):
+    """A worker id outside ``[0, num_workers)`` raises before the launch
+    (the kernel would index its state with it)."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), _ = _stream_inputs(5, 20, 1, cuda_device)
+    w[7] = bad_id
+    before = stream_k.LAUNCHES["stream"]
+    with pytest.raises(ValueError, match="worker ids"):
+        stream_k.stream_scan(t, w, d, 5)
+    assert stream_k.LAUNCHES["stream"] == before
+
+
+def test_cuda_stream_backend_matches_the_plain_backend(cuda_device):
+    """``compute(backend="stream")`` on the card is one launch and gives
+    the CPU result of the same backend, bit for bit."""
+    from repro_torch.core import cmetric
+    from repro_torch.core.events import synthetic_log
+    from repro_torch.kernels import ops
+    log = synthetic_log(np.random.default_rng(3), 12, 300).sanitize()
+    ops.reset_launch_counts()
+    a = cmetric.compute(log, backend="stream", device=cuda_device)
+    assert ops.launch_counts()["stream"] == 1
+    b = cmetric.compute(log, backend="stream", device="cpu")
+    np.testing.assert_array_equal(a.per_worker, b.per_worker)
+    for col in ("worker", "start_ns", "end_ns", "cm", "threads_av",
+                "n_at_exit"):
+        np.testing.assert_array_equal(getattr(a.table, col),
+                                      getattr(b.table, col), err_msg=col)
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_cuda_session_routes_the_histogram_to_the_card(cuda_device, backend):
+    """An offline session on the card, under either name of the fused
+    backend, folds on ``carry_cumsum`` and histograms on ``tag_hist``, and
+    agrees with the float64 oracle (per-worker rtol 1e-4)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from repro_torch import convert
+    from repro_torch.core import ProfileSession, detect_offline
+    from repro_torch.kernels import ops
+    log, tags, stacks, samples = convert.capture_from_numpy(
+        *chip_smoke.make_capture(3, num_workers=64, rounds=64, group=4)[:5])
+    oracle = detect_offline(log, tags, stacks, 8.0, samples=samples,
+                            backend="numpy")
+    ops.reset_launch_counts()
+    sess = ProfileSession.offline(log, tags, stacks, n_min=8.0,
+                                  samples=samples, backend=backend,
+                                  chunk_events=999, device=cuda_device)
+    rep = sess.result()
+    counts = ops.launch_counts()
+    assert counts["carry_cumsum"] >= 1 and counts["hist"] == 1, counts
+    assert sess.device == cuda_device
+    assert rep.total_slices == oracle.total_slices
+    np.testing.assert_allclose(rep.per_worker, oracle.per_worker, rtol=1e-4,
+                               atol=1e-6)
+    assert rep.paths[0].stack == chip_smoke.INJECTED_PATH

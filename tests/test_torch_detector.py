@@ -178,6 +178,88 @@ def test_chip_smoke_capture_rehearsal():
             chip_smoke._critical_keys(ref.critical_table)
 
 
+def _hold_case(kernel, seed):
+    """Inputs of one kernel call and the ``chip_smoke`` hold that checks
+    it, on the CPU, with the plain version's outputs standing in for the
+    kernel's."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    e = 3000
+    t = torch.from_numpy(np.sort(rng.random(e)).astype(np.float32))
+    deltas = torch.from_numpy(rng.choice([1, -1], e).astype(np.int32))
+    dt = torch.cat([t[1:] - t[:-1], t.new_zeros(1)])
+    if kernel == "fold":
+        carry = (torch.tensor(3.0), torch.tensor(0.5), torch.tensor(0.25))
+        return (lambda out: chip_smoke.hold_fold("t", dt, deltas, carry, out),
+                ref.fold_ref(dt, deltas, carry))
+    if kernel == "carry_cumsum":
+        contrib, idle = dt * 0.25, dt * (deltas < 0)
+        return (lambda out: chip_smoke.hold_carry_cumsum(
+            "t", contrib, idle, (0.5, 0.125), out),
+            ref.carry_cumsum_ref(contrib, idle, (0.5, 0.125)))
+    if kernel == "hist":
+        tags = torch.from_numpy(rng.integers(-2, 40, e).astype(np.int32))
+        w = torch.from_numpy(rng.random(e).astype(np.float32))
+        return (lambda out: chip_smoke.hold_hist("t", tags, w, 37, out),
+                ref.hist_ref(tags, w, 37))
+    from repro_torch.core.events import synthetic_log
+    log = synthetic_log(rng, 5, 300).sanitize()
+    cols = chip_smoke.stream_columns(log, torch.device("cpu"))
+    return (lambda out: chip_smoke.hold_stream("t", *cols, 5, out),
+            ref.stream_ref(*cols, 5))
+
+
+def _nudge(out):
+    """The same outputs with one float value moved by 1%, the first float
+    tensor found depth first."""
+    out = [list(x) if isinstance(x, tuple) else x for x in out]
+    for i, x in enumerate(out):
+        if isinstance(x, list):
+            out[i] = tuple(_nudge(x))
+            if any(a is not b for a, b in zip(out[i], x)):
+                return out
+        elif x.is_floating_point() and x.dim() == 1 and x.numel():
+            x = x.clone()
+            x[x.numel() // 2] *= 1.01
+            out[i] = x
+            return out
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["fold", "carry_cumsum", "hist", "stream"])
+def test_chip_smoke_holds_pass_the_plain_outputs_and_catch_a_wrong_one(
+        kernel):
+    """Each hold ``chip_smoke.py`` applies to a kernel call accepts the
+    plain version's own outputs and stops the run on outputs with one
+    value 1% off."""
+    hold, out = _hold_case(kernel, 4)
+    hold(out)
+    with pytest.raises(SystemExit, match="FAILED"):
+        hold(_nudge(out))
+
+
+def test_chip_smoke_records_every_kernel_call_of_a_path(monkeypatch):
+    """``chip_smoke.recording`` keeps each call a path makes to a kernel
+    wrapper (here on the CPU, with the card test patched out) with its
+    inputs and outputs; ``hold_recorded`` holds them all and stops the run
+    when the path counted another number of launches."""
+    monkeypatch.setattr(chip_smoke, "_on_card", lambda x: True)
+    log, tags, stacks, samples = convert.capture_from_numpy(
+        *chip_smoke.make_capture(2, num_workers=16, rounds=16, group=2)[:5])
+    with chip_smoke.recording() as calls:
+        detect_offline(log, tags, stacks, 4.0, samples=samples,
+                       backend="fused", chunk_events=200, device="cpu")
+        T.cmetric.compute(log.sanitize(), backend="stream", device="cpu")
+    counts = {k: len(v) for k, v in calls.items()}
+    assert counts["carry_cumsum"] == -(-len(log) // 200)
+    assert counts["stream"] == 1 and counts["fold"] == 0
+    chip_smoke.hold_recorded("t", calls, counts)
+    with pytest.raises(SystemExit, match="FAILED"):
+        chip_smoke.hold_recorded("t", calls, {**counts, "stream": 2})
+    from repro_torch.kernels import stream_scan
+    assert stream_scan.stream_scan.__name__ == "stream_scan"   # restored
+
+
 def _drive_tracer(pkg):
     """Two parallel workers and one serial worker under two call paths,
     on a fake clock (the JAX package's test_detector trace)."""

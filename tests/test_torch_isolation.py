@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import cmetric, synthetic_log
+from repro_torch.core import ProfileSession, cmetric, synthetic_log
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -34,7 +34,8 @@ def _env():
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.device, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build\n"
+            "repro_torch.kernels.build, repro_torch.core.session, "
+            "repro_torch.fleet, repro_torch.obs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))\n")
@@ -82,6 +83,13 @@ def test_cuda_without_a_card_raises(monkeypatch):
         device_lib.resolve("cuda")
     assert cmetric.compute(log, device="cpu").num_slices == 15
     assert cmetric.compute(log, backend="numpy").num_slices == 15
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProfileSession()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProfileSession.offline(log)
+    assert ProfileSession(device="cpu").device == torch.device("cpu")
+    assert ProfileSession.offline(log, device="cpu").result().total_slices \
+        == 15
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -155,6 +155,8 @@ def test_cpu_calls_neither_build_nor_count_launches(monkeypatch):
     ops.cmetric_fold(torch.from_numpy(t), torch.from_numpy(deltas))
     ops.fold_chunk_prefix(0.0, 0.0, np.ones(10), np.zeros(10), device="cpu")
     ops.tag_histogram(torch.zeros(4, dtype=torch.int32), num_bins=2)
+    ops.stream_scan(torch.from_numpy(t), torch.zeros(300, dtype=torch.int32),
+                    torch.from_numpy(deltas), 1)
     assert ops.launch_counts() == before
 
 
