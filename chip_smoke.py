@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
    tag_hist at S = 2^24 with uniform tags over K = 3,300 and K = 2^20 and
    with skewed tags (90% in 64 bins), weighted; stream_scan on the first
    2^16 events of the capture against its plain version (float32 in event
-   order, on the host), then it and its plain version timed at E = 2^24.
+   order, on the host), then it and its plain version timed at E = 2^24,
+   the whole call eager and from a CUDA graph, each of its launches' device
+   time from one profiled call, and its chain launch alone against the
+   chain bound.
 3. The main path: ``detect_offline`` with the fused backend, whole-log and
    with ``chunk_events=1<<20``, checked against the float64 ``numpy``
    chunked fold (per-worker CMetric, slice counts, critical-set flips, the
@@ -572,12 +575,31 @@ def hold_stream(label, times_s, workers, deltas, num_workers, out):
     return bit_equal, err, int(kr[0].shape[0])
 
 
+def stream_device_times(call) -> dict:
+    """Device time of each kernel (and copy) one ``call()`` launches, in
+    ms by name, from ``torch.profiler``: the stream scan's stages."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 def check_stream(rows, log, dev):
     """stream_scan against its plain version on the first 2^16 events of
     the capture, then it and its plain version timed at the whole capture
-    (phase 3 holds the whole-capture call of the main path).  Its bound is
-    the dependent chain: E float32 adds in series at FADD_LATENCY_CYCLES
-    each, at the card's maximum SM clock."""
+    (phase 3 holds the whole-capture call of the main path), eager and
+    replayed from a CUDA graph, with each stage's device time from one
+    profiled call and the chain launch timed alone.  Its bound is the
+    dependent chain: E float32 adds in series at FADD_LATENCY_CYCLES each,
+    at the card's maximum SM clock; the chain launch is held to the same
+    bound."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import stream_scan as stream_k
@@ -616,11 +638,32 @@ def check_stream(rows, log, dev):
           f"{FADD_LATENCY_CYCLES} cycles at {hz / 1e6:.0f} MHz = "
           f"{chain_ms:.4f} ms; bytes {nbytes:.0f} at 3.35 TB/s = "
           f"{byte_ms:.4f} ms")
+    extra = {}
+    # (another checkout, under --src, may predate the staged pipeline)
+    if hasattr(stream_k, "chain_launch"):
+        share, idle, _, _ = stream_k.prepass_stage(t, d)
+        bufs = stream_k.chain_buffers(share, idle)
+        del share, idle
+        scalars = torch.empty(2, dtype=torch.float32, device=dev)
+        walk_ms = time_ms(lambda: stream_k.chain_launch(e, bufs, scalars), 5)
+        check(float(scalars[1]) == float(out[2])
+              and float(scalars[0]) == float(out[1]),
+              "stream: the chain alone disagrees with the pipeline's sums")
+        del bufs
+        extra = {"chain_ms": walk_ms,
+                 "chain_share": round(chain_ms / walk_ms, 4)}
+        print(f"[kernel] stream chain launch alone at E={e}: "
+              f"{walk_ms:.4f} ms, {100 * chain_ms / walk_ms:.1f}% of the "
+              f"{chain_ms:.4f} ms chain bound")
+    stages = stream_device_times(kernel)
+    print("[kernel] stream stages, device ms of one call (torch.profiler): "
+          + ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(
+              stages.items(), key=lambda kv: -kv[1])))
     rows.add("stream", "stream_scan.stream_scan", STREAM_SRC,
              "src/repro/core/cmetric.py:194", f"E={e}", err,
-             time_ms(kernel, 2), plain_ms, nbytes, 0.0, None, None,
+             time_ms(kernel, 20), plain_ms, nbytes, 0.0, None, None,
              bound=bound, checked_shape=f"E={len(sub)}", bit_equal=bit_equal,
-             graph_ms=graph_ms(launch, 1))
+             graph_ms=graph_ms(launch, 1), stages=stages, **extra)
 
 
 #: Each kernel wrapper, by its launch-count key: (module, function).

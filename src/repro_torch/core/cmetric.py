@@ -17,8 +17,9 @@ Four implementations, equivalent up to float tolerance, registered in the
 * ``numpy``  — :func:`compute_numpy`, float64 oracle (reference for all).
 * ``stream`` — :func:`compute_streaming`, paper-faithful event-at-a-time
   walk maintaining exactly the eBPF-map state of Table 1, in float32, on
-  the CUDA ``stream_scan`` kernel (one launch, one thread walking the
-  events in order).
+  the CUDA ``stream_scan`` kernel (a pipeline of launches in which only
+  the two float32 running sums are walked in event order, by one thread
+  each; counts, pairing, rows and per-worker sums run in parallel).
 * ``vector`` — :func:`compute_vectorized`, beyond-paper data-parallel
   formulation in torch (cumsum + stable-sort pairing + index_add) on the
   default device.  O(E log E) work but fully parallel.

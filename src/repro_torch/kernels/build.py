@@ -42,9 +42,15 @@ SIGNATURES = {
         "gapp_tag_hist_path": [_I, _I],
     },
     "stream_scan": {
-        "gapp_stream_smem_workers": [],
-        "gapp_stream_scan": [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _LL, _P],
+        "gapp_stream_tile": [],
+        "gapp_stream_segment": [],
+        "gapp_stream_prepass": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _P],
+        "gapp_stream_chain": [_P, _P, _LL, _P, _P, _P],
+        "gapp_stream_expand": [_P, _P, _LL, _P, _P],
+        "gapp_stream_pair": [_P, _P, _P, _P, _LL, _I, _P, _P, _P, _P],
+        "gapp_stream_rows": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
+                             _P, _P],
+        "gapp_stream_cm": [_P, _P, _I, _P, _P],
     },
 }
 

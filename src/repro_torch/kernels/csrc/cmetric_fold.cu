@@ -46,9 +46,15 @@
 namespace {
 
 using gapp::kFullMask;
+using gapp::kStatusAggregate;
+using gapp::kStatusInclusive;
 using gapp::lane_id;
 using gapp::load4;
+using gapp::look_back;
+using gapp::status_word;
 using gapp::store4;
+using gapp::store_status;
+using gapp::take_tile;
 using gapp::warp_inclusive;
 
 // A tile is 8,192 events: 16 warps of 512.  Lane l of a warp holds, for
@@ -75,16 +81,6 @@ __device__ __forceinline__ float contrib_of(float dt, int n) {
   return n > 0 ? dt / (float)n : 0.f;
 }
 
-// The block's tile: tiles are numbered in the order blocks start, so every
-// tile a block waits for belongs to a block that is already running.
-__device__ __forceinline__ int64_t take_tile(unsigned long long* ticket) {
-  __shared__ int64_t s_tile;
-  if (threadIdx.x == 0)
-    s_tile = atomicAdd(reinterpret_cast<unsigned*>(ticket), 1u);
-  __syncthreads();
-  return s_tile;
-}
-
 // One vector of a warp's scan: x (this lane's four events of vector j of
 // the layout above) becomes its prefix within the warp, inclusive or
 // exclusive, and *run (the warp's sum over the vectors before j) grows by
@@ -105,110 +101,6 @@ __device__ __forceinline__ void warp_scan_step(T (&x)[4], T* run) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) x[q] += base;
   *run += __shfl_sync(kFullMask, wi, 31);
-}
-
-// A status word is one 64-bit value that says what it holds: first the
-// tile's aggregate, then its inclusive prefix, carry included.  A float64
-// sum keeps the state in its two lowest mantissa bits (a relative change
-// below 2^-50); an int32 count sits in the high half, the state in the low
-// one.  A word is read and written whole (relaxed 64-bit accesses at device
-// scope), so a reader needs no ordering against any other memory.  Zero is
-// "not yet".
-enum : unsigned long long {
-  kStatusInvalid = 0,
-  kStatusAggregate = 1,
-  kStatusInclusive = 2,
-  kStatusMask = 3
-};
-
-__device__ __forceinline__ unsigned long long status_word(double v,
-                                                          unsigned long long s) {
-  return ((unsigned long long)__double_as_longlong(v) & ~kStatusMask) | s;
-}
-
-__device__ __forceinline__ unsigned long long status_word(unsigned v,
-                                                          unsigned long long s) {
-  return ((unsigned long long)v << 32) | s;
-}
-
-template <typename T>
-__device__ T word_value(unsigned long long w);
-
-template <>
-__device__ __forceinline__ double word_value<double>(unsigned long long w) {
-  return __longlong_as_double((long long)(w & ~kStatusMask));
-}
-
-// Counts are summed as unsigned (wrapping) and read back as int32, so a
-// negative count keeps its sign.
-template <>
-__device__ __forceinline__ unsigned word_value<unsigned>(unsigned long long w) {
-  return (unsigned)(w >> 32);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long w) {
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
-               : "=l"(w)
-               : "l"(p)
-               : "memory");
-  return w;
-}
-
-// Wait until the tiles before `tile` have published enough to sum every
-// event before it, on each of kChains chains whose words for tile p lie at
-// words[kChains * p + x]; acc[x] receives chain x's prefix, carry included
-// (the walk ends on an inclusive word, and tile 0's holds the carry).  Each
-// lane reads one predecessor's words per step; the chains end
-// independently.  Called by all 32 lanes of one warp.
-template <typename T, int kChains>
-__device__ __forceinline__ void look_back(int64_t tile,
-                                          const unsigned long long* words,
-                                          T (&acc)[kChains]) {
-  const int lane = lane_id();
-  bool open[kChains];
-  int nopen = kChains;
-#pragma unroll
-  for (int x = 0; x < kChains; ++x) {
-    acc[x] = T(0);
-    open[x] = true;
-  }
-  for (int64_t pos = tile - 1; nopen > 0; pos -= 32) {
-    const int64_t p = pos - lane;
-    unsigned long long w[kChains];
-    bool wait;
-    do {
-      wait = false;
-#pragma unroll
-      for (int x = 0; x < kChains; ++x) {
-        w[x] = p >= 0 && open[x] ? load_status(words + kChains * p + x)
-                                 : kStatusInclusive;
-        wait |= (w[x] & kStatusMask) == kStatusInvalid;
-      }
-    } while (__any_sync(kFullMask, wait));
-#pragma unroll
-    for (int x = 0; x < kChains; ++x) {
-      if (!open[x]) continue;  // the same for every lane
-      const unsigned incl = __ballot_sync(
-          kFullMask, (w[x] & kStatusMask) == kStatusInclusive && p >= 0);
-      const int stop = incl ? __ffs(incl) - 1 : 31;
-      T v = lane <= stop && p >= 0 ? word_value<T>(w[x]) : T(0);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-      acc[x] += v;
-      if (incl) {
-        open[x] = false;
-        --nopen;
-      }
-    }
-  }
 }
 
 // The tile's (contrib, idle) sums from each warp's totals (held by lane

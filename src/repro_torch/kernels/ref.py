@@ -125,3 +125,126 @@ def stream_ref(times_s, workers, deltas, num_workers: int):
             col(n_at_exit, np.int32))
     return (col(cm, f32), col(idle, f32).reshape(()),
             col(gcm[-1], f32).reshape(()), rows)
+
+
+# ---- the stream_scan pipeline's stages ---------------------------------------
+#
+# Each launch of the stream_scan pipeline has its plain version here, in
+# numpy float32 as stream_ref; stream_stages_ref composes them and equals
+# stream_ref bit for bit.  Inputs and outputs are tensors, outputs on the
+# device of the first input.
+
+def _np(x):
+    return x.cpu().numpy()
+
+
+def _col(x, dtype, like):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(like.device)
+
+
+def stream_prepass_ref(times_s, deltas):
+    """Stage 1: ``(share f32[E], idle f32[E], out_idx i32[S], n_at_exit
+    i32[S])``: each event's share of global_cm (``dt / count`` while the
+    active count before it is positive, else 0) and of idle (``dt`` while
+    it is not, else 0), with the first dt 0; the event of each switch-out
+    (delta <= 0) in order, and the active count before it."""
+    f32 = np.float32
+    t = _np(times_s)
+    is_in = _np(deltas) > 0
+    step = np.where(is_in, 1, -1)
+    count = np.cumsum(step) - step
+    dt = t - np.concatenate([t[:1], t[:-1]])
+    active = count > 0
+    share = np.where(active, dt / np.maximum(count, 1).astype(f32), f32(0))
+    idle = np.where(active, f32(0), dt)
+    out_idx = np.flatnonzero(~is_in)
+    return (_col(share, f32, times_s), _col(idle, f32, times_s),
+            _col(out_idx, np.int32, times_s),
+            _col(count[out_idx], np.int32, times_s))
+
+
+def stream_chain_ref(share, idle):
+    """Stage 2: ``(gcm f32[E], idle_total, gcm_total)``: global_cm after
+    each event and the two totals, float32 running sums in order."""
+    f32 = np.float32
+    gcm = np.add.accumulate(_np(share), dtype=f32)
+    idle_total = np.add.accumulate(_np(idle), dtype=f32)[-1]
+    return (_col(gcm, f32, share), _col(idle_total, f32, share).reshape(()),
+            _col(gcm[-1], f32, share).reshape(()))
+
+
+def stream_pair_ref(workers, deltas, num_workers: int):
+    """Stage 3: ``(src i32[S], place i32[S], wrange i32[W, 2])``: for the
+    k-th switch-out, its worker's last switch-in at or before it (-1:
+    none) and its place in the rows ordered stably by worker; for each
+    worker the range ``[begin, end)`` of its rows' places, ``(0, 0)`` for
+    a worker with no events."""
+    w = _np(workers)
+    is_in = _np(deltas) > 0
+    e = w.shape[0]
+    order = np.argsort(w, kind="stable")
+    pos = np.arange(e)
+    first = np.flatnonzero(np.r_[True, w[order][1:] != w[order][:-1]])
+    seg_first = np.repeat(first, np.diff(np.r_[first, e]))
+    last_in = np.maximum.accumulate(np.where(is_in[order], pos, -1))
+    last = np.full(e, -1)
+    last[order] = np.where(last_in >= seg_first, order[last_in], -1)
+    out = ~is_in
+    w_out = w[out]
+    place = np.empty(w_out.shape[0], np.int64)
+    place[np.argsort(w_out, kind="stable")] = np.arange(w_out.shape[0])
+    n_out = np.bincount(w_out, minlength=num_workers)
+    end = np.cumsum(n_out)
+    has = np.bincount(w, minlength=num_workers) > 0
+    wrange = np.stack([np.where(has, end - n_out, 0), np.where(has, end, 0)],
+                      axis=1)
+    return (_col(last[out], np.int32, workers),
+            _col(place, np.int32, workers), _col(wrange, np.int32, workers))
+
+
+def stream_rows_ref(times_s, workers, gcm, out_idx, src, place, n_at_exit):
+    """Stage 4: ``(rows, slice_cm_by_place)``: the six row columns
+    ``(worker, start, end, cm, threads_av, n_at_exit)``, row k the
+    switch-out ``out_idx[k]`` paired with the switch-in ``src[k]`` (-1:
+    none, which takes global_cm 0 and time 0); and each row's slice cm at
+    its place ``place[k]``."""
+    f32 = np.float32
+    t, g = _np(times_s), _np(gcm)
+    i, s, n = _np(out_idx), _np(src), _np(n_at_exit)
+    local = np.where(s >= 0, g[s], f32(0))
+    start = np.where(s >= 0, t[s], f32(0))
+    slice_cm = g[i] - local
+    dur = t[i] - start
+    with np.errstate(over="ignore"):            # the branch not taken
+        threads_av = np.where(slice_cm > 0,
+                              dur / np.maximum(slice_cm, f32(1e-30)),
+                              np.maximum(n, 1).astype(f32))
+    by_place = np.empty_like(slice_cm)
+    by_place[_np(place)] = slice_cm
+    rows = (_col(_np(workers)[i], np.int32, times_s),
+            _col(t[i] - dur, f32, times_s), _col(t[i], f32, times_s),
+            _col(slice_cm, f32, times_s), _col(threads_av, f32, times_s),
+            _col(n, np.int32, times_s))
+    return rows, _col(by_place, f32, times_s)
+
+
+def stream_cm_ref(slice_cm_by_place, wrange):
+    """Stage 5: ``cm f32[W]``, each worker's slices ``slice_cm_by_place[
+    begin:end]`` summed in order from 0."""
+    f32 = np.float32
+    r = _np(wrange).astype(np.int64)
+    cm = np.zeros(r.shape[0], f32)
+    np.add.at(cm, np.repeat(np.arange(r.shape[0]), r[:, 1] - r[:, 0]),
+              _np(slice_cm_by_place))
+    return _col(cm, f32, slice_cm_by_place)
+
+
+def stream_stages_ref(times_s, workers, deltas, num_workers: int):
+    """The five stages composed as the kernel composes them; returns what
+    :func:`stream_ref` returns, bit for bit."""
+    share, idle, out_idx, n_at_exit = stream_prepass_ref(times_s, deltas)
+    gcm, idle_total, gcm_total = stream_chain_ref(share, idle)
+    src, place, wrange = stream_pair_ref(workers, deltas, num_workers)
+    rows, by_place = stream_rows_ref(times_s, workers, gcm, out_idx, src,
+                                     place, n_at_exit)
+    return (stream_cm_ref(by_place, wrange), idle_total, gcm_total, rows)

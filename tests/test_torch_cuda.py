@@ -327,9 +327,9 @@ def _check_stream(k, p):
     (1, 1), (3, 682), (1, 2048), (2, 1025), (4, 513), (64, 40), (1000, 9),
     (8, 4097), (1024, 2048)])
 def test_cuda_stream_matches_plain(cuda_device, num_workers, slices):
-    """4,092-4,104 events lie on the edge of one 4,096-event tile, 65,552
-    span 17 tiles; 1,000 workers take 12 KB of shared state; 1,024 x 2,048
-    is 2^22 events, 1,024 tiles."""
+    """4,092-4,104 events lie on both sides of one chain ring stage
+    (4,096 events), 65,552 span 9 prepass tiles; 1,000 workers; 1,024 x
+    2,048 is 2^22 events, 512 tiles."""
     from repro_torch.kernels import stream_scan as stream_k
     (t, w, d), log = _stream_inputs(num_workers, slices, slices, cuda_device)
     before = stream_k.LAUNCHES["stream"]
@@ -341,14 +341,133 @@ def test_cuda_stream_matches_plain(cuda_device, num_workers, slices):
     _check_stream(k, p)
 
 
-def test_cuda_stream_state_above_the_shared_memory_limit(cuda_device):
-    """More workers than the shared state holds: the state goes to the
-    global scratch array, with the same results."""
+def _dirty(seed, e=None, w=None):
+    """Columns of a log the sanitizer would reject (a numpy copy of
+    tests/test_torch_stream.py's ``_dirty``): switch-outs with no
+    switch-in, repeated switch-ins, zero deltas (switch-outs to the scan),
+    equal times and counts that go negative; ``e`` events and ``w``
+    workers when given."""
+    rng = np.random.default_rng(seed)
+    e = int(rng.integers(1, 300)) if e is None else e
+    w = int(rng.integers(1, 9)) if w is None else w
+    t = np.sort(rng.integers(0, 50, e)).astype(np.float32) * np.float32(
+        rng.choice([1e-3, 0.37, 1e3]))
+    return (t.astype(np.float32), rng.integers(0, w, e).astype(np.int32),
+            rng.choice([1, -1, 0], e).astype(np.int32), w)
+
+
+def _dirty_on(dev, seed, e=None, w=None):
+    t, wk, d, nw = _dirty(seed, e, w)
+    return [torch.from_numpy(x).to(dev) for x in (t, wk, d)], nw
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_cuda_stream_matches_plain_on_dirty_logs(cuda_device, seed):
+    """Logs no sanitizer touched: the pairing (the last switch-in at or
+    before a switch-out, -1 without one) and the negative counts agree
+    with the plain version bit for bit."""
     from repro_torch.kernels import stream_scan as stream_k
-    w_count = stream_k.smem_workers() + 3
-    (t, w, d), _ = _stream_inputs(w_count, 2, 7, cuda_device)
-    k = stream_k.stream_scan(t, w, d, w_count)
-    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), w_count))
+    (t, w, d), nw = _dirty_on(cuda_device, seed)
+    k = stream_k.stream_scan(t, w, d, nw)
+    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), nw))
+
+
+@pytest.mark.parametrize("e", [1, 2, 255, 256, 257, 4095, 4096, 4097,
+                               8191, 8192, 8193, 3 * 8192 + 5])
+def test_cuda_stream_at_the_edges_of_a_stage_and_a_tile(cuda_device, e):
+    """E = 1, and E on both sides of a checkpoint of the walk (256
+    events), of a chain ring stage (4,096) and of a prepass tile (8,192),
+    on dirty logs of 5 workers."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), nw = _dirty_on(cuda_device, e, e, 5)
+    k = stream_k.stream_scan(t, w, d, nw)
+    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), nw))
+
+
+def test_cuda_stream_one_worker_over_many_ring_stages(cuda_device):
+    """One worker, 420,000 events: the chain walks 103 ring stages of
+    4,096 events (each of the three ring slots reused 34 times) and the
+    worker's CMetric is one chain of 210,000 slices."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), _ = _stream_inputs(1, 210_000, 9, cuda_device)
+    assert t.shape[0] > 100 * 4096
+    k = stream_k.stream_scan(t, w, d, 1)
+    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), 1))
+
+
+def test_cuda_stream_many_workers(cuda_device):
+    """20,000 workers (the walk keeps no per-worker state: the pairing and
+    the per-worker sums take any count), a few slices each."""
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), _ = _stream_inputs(20_000, 3, 7, cuda_device)
+    k = stream_k.stream_scan(t, w, d, 20_000)
+    _check_stream(k, ref.stream_ref(t.cpu(), w.cpu(), d.cpu(), 20_000))
+
+
+def _equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+# Each stage of the pipeline alone against its plain stage, on a dirty log
+# of 50,000 events (7 tiles) and 7 workers, from the plain version of the
+# stage before.
+def _stage_log(dev):
+    return _dirty_on(dev, 77, 50_000, 7)
+
+
+def test_cuda_stream_prepass_stage_matches_plain(cuda_device):
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, _, d), _ = _stage_log(cuda_device)
+    for a, b in zip(stream_k.prepass_stage(t, d),
+                    ref.stream_prepass_ref(t.cpu(), d.cpu())):
+        _equal(a, b)
+
+
+def test_cuda_stream_chain_stage_matches_plain(cuda_device):
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, _, d), _ = _stage_log(cuda_device)
+    share, idle, _, _ = ref.stream_prepass_ref(t.cpu(), d.cpu())
+    k = stream_k.chain_stage(share.to(cuda_device), idle.to(cuda_device))
+    for a, b in zip(k, ref.stream_chain_ref(share, idle)):
+        _equal(a, b)
+
+
+def test_cuda_stream_pair_stage_matches_plain(cuda_device):
+    from repro_torch.kernels import stream_scan as stream_k
+    (_, w, d), nw = _stage_log(cuda_device)
+    k = stream_k.pair_stage(w, d, nw + 2)      # two workers without events
+    for a, b in zip(k, ref.stream_pair_ref(w.cpu(), d.cpu(), nw + 2)):
+        _equal(a, b)
+
+
+def test_cuda_stream_rows_stage_matches_plain(cuda_device):
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), nw = _stage_log(cuda_device)
+    tc, wc, dc = t.cpu(), w.cpu(), d.cpu()
+    share, idle, out_idx, n_at_exit = ref.stream_prepass_ref(tc, dc)
+    gcm, _, _ = ref.stream_chain_ref(share, idle)
+    src, place, _ = ref.stream_pair_ref(wc, dc, nw)
+    args = (tc, wc, gcm, out_idx, src, place, n_at_exit)
+    rows_k, by_place_k = stream_k.rows_stage(
+        *(x.to(cuda_device) for x in args))
+    rows_p, by_place_p = ref.stream_rows_ref(*args)
+    for a, b in zip((*rows_k, by_place_k), (*rows_p, by_place_p)):
+        _equal(a, b)
+
+
+def test_cuda_stream_cm_stage_matches_plain(cuda_device):
+    from repro_torch.kernels import stream_scan as stream_k
+    (t, w, d), nw = _stage_log(cuda_device)
+    tc, wc, dc = t.cpu(), w.cpu(), d.cpu()
+    share, idle, out_idx, n_at_exit = ref.stream_prepass_ref(tc, dc)
+    gcm, _, _ = ref.stream_chain_ref(share, idle)
+    src, place, wrange = ref.stream_pair_ref(wc, dc, nw + 2)
+    _, by_place = ref.stream_rows_ref(tc, wc, gcm, out_idx, src, place,
+                                      n_at_exit)
+    _equal(stream_k.cm_stage(by_place.to(cuda_device),
+                             wrange.to(cuda_device)),
+           ref.stream_cm_ref(by_place, wrange))
 
 
 def test_cuda_stream_back_to_back(cuda_device):

@@ -184,3 +184,112 @@ def test_stream_wrapper_rejects_worker_ids_outside_the_range(bad_id):
     d = torch.tensor([1, 1, 1, -1], dtype=torch.int32)
     with pytest.raises(ValueError, match="worker ids"):
         stream_k.stream_scan(t, w, d, 3)
+
+
+# ---- the stream_scan pipeline's plain stages --------------------------------
+# ``ref.stream_stages_ref`` composes the plain versions of the kernel's five
+# launches (prepass, chain, pair, rows, cm) as the kernel composes them; it
+# must equal ``ref.stream_ref`` and the JAX ``_streaming_scan`` bit for bit.
+
+def _jax_scan(t, w, d, nw):
+    """The JAX package's scan on raw columns: (cm, idle, row columns)."""
+    import jax.numpy as jnp
+    cm_j, idle_j, outs = J_cmetric._streaming_scan(
+        jnp.asarray(t), jnp.asarray(w), jnp.asarray(d), nw)
+    is_out, *cols = (np.asarray(x) for x in outs)
+    m = is_out.astype(bool)
+    return np.asarray(cm_j), float(idle_j), [c[m] for c in cols]
+
+
+def _stages_equal_everywhere(t, w, d, nw):
+    """The composed plain stages against stream_ref and the JAX scan, bit
+    for bit; returns the stages' result."""
+    import torch
+
+    from repro_torch.kernels import ref
+    args = (torch.from_numpy(t), torch.from_numpy(w), torch.from_numpy(d),
+            nw)
+    got, want = ref.stream_stages_ref(*args), ref.stream_ref(*args)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    assert float(got[1]) == float(want[1])
+    assert float(got[2]) == float(want[2])
+    names = ("worker", "start", "end", "cm", "threads_av", "n_at_exit")
+    for name, a, b in zip(names, got[3], want[3]):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    cm_j, idle_j, cols_j = _jax_scan(t, w, d, nw)
+    np.testing.assert_array_equal(got[0].numpy(), cm_j)
+    assert float(got[1]) == idle_j
+    for name, a, b in zip(names, got[3], cols_j):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_stream_stages_match_the_reference_scan_on_dirty_logs(seed):
+    _stages_equal_everywhere(*_dirty(seed))
+
+
+@pytest.mark.parametrize("num_workers", [1, 2, 5, 17, 64])
+def test_stream_stages_match_the_reference_scan_on_sanitized_logs(
+        num_workers):
+    log = J.synthetic_log(np.random.default_rng(num_workers), num_workers,
+                          int(200 // num_workers) + 3).sanitize()
+    _stages_equal_everywhere(log.slice_seconds().astype(np.float32),
+                             log.workers.astype(np.int32),
+                             log.deltas.astype(np.int32), num_workers)
+
+
+def _cols(events, dtype=np.float32):
+    """(time, worker, delta) triples as the scan's columns."""
+    t, w, d = zip(*events)
+    return (np.asarray(t, dtype), np.asarray(w, np.int32),
+            np.asarray(d, np.int32))
+
+
+def test_stream_stages_zero_delta_is_a_switch_out():
+    cm, _, _, rows = _stages_equal_everywhere(
+        *_cols([(0, 0, 1), (2, 0, 0), (3, 1, 1), (5, 1, -1)]), 2)
+    assert rows[0].tolist() == [0, 1] and cm.tolist() == [2.0, 2.0]
+
+
+def test_stream_stages_negative_count_goes_to_idle():
+    # two switch-outs first: the count before events 1-3 is -1, -2, -1
+    cm, idle, _, rows = _stages_equal_everywhere(
+        *_cols([(0, 0, -1), (1, 1, -1), (3, 0, 1), (7, 1, 1)]), 2)
+    assert float(idle) == 7.0 and cm.tolist() == [0.0, 0.0]
+    assert rows[5].tolist() == [0, -1]
+
+
+def test_stream_stages_switch_out_without_switch_in_starts_at_zero():
+    # worker 1 leaves at t = 4 without having come in: local 0, start 0;
+    # the count is then 0, so the last 2 s are idle
+    _, idle, _, rows = _stages_equal_everywhere(
+        *_cols([(1, 0, 1), (4, 1, -1), (6, 0, -1)]), 2)
+    worker, start, end, slice_cm = (r.tolist() for r in rows[:4])
+    assert worker == [1, 0] and start == [0.0, 1.0] and end == [4.0, 6.0]
+    assert slice_cm == [3.0, 3.0] and float(idle) == 2.0
+
+
+def test_stream_stages_last_of_repeated_switch_ins_counts():
+    # worker 0 comes in at 0 and again at 2 (the count is then 2, so the
+    # last 3 s add 1.5); its slice starts at 2
+    cm, _, _, rows = _stages_equal_everywhere(
+        *_cols([(0, 0, 1), (2, 0, 1), (5, 0, -1)]), 1)
+    assert rows[1].tolist() == [2.0] and cm.tolist() == [1.5]
+
+
+def test_stream_stages_repeated_switch_outs_share_their_switch_in():
+    # both switch-outs pair with the switch-in at 0 and both add to cm
+    cm, _, _, rows = _stages_equal_everywhere(
+        *_cols([(0, 0, 1), (2, 0, -1), (4, 0, -1)]), 1)
+    assert rows[1].tolist() == [0.0, 0.0] and rows[3].tolist() == [2.0, 2.0]
+    assert cm.tolist() == [4.0]
+
+
+def test_stream_stages_one_event():
+    for d in (1, -1):
+        cm, idle, gcm, rows = _stages_equal_everywhere(
+            *_cols([(3.5, 0, d)]), 2)
+        assert cm.tolist() == [0.0, 0.0] and float(idle) == 0.0
+        assert float(gcm) == 0.0 and rows[0].shape[0] == (d <= 0)
