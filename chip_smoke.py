@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis and live paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,29 @@ Phases (any failure exits non-zero):
    ``export("json")`` and, served from the fleet_dir, ``/api/whatif``
    against the offline ``what_if(...).to_json()``, byte for byte.
 
-Each path of phases 3-6 runs with every kernel's launch count set to 0
+7. Serve: the model workload.  Four tiny archs (deepseek-7b, qwen3-32b,
+   gemma3-1b, grok-1-314b) in float32, the same parameters forward and
+   8 teacher-forced decode steps on the card and on the CPU (rtol/atol
+   1e-4, TF32 off); deepseek-7b at its full published width (30 layers,
+   d_model 4096, 6.91e9 parameters, float32 masters drawn on the card from
+   the seed), decode against forward in float32 at 8 positions (rtol/atol
+   1e-3); then the ``serve_engine`` example's flow at full width in
+   bfloat16: an ``Engine`` of 8 slots and a 128-slot cache under a GAPP
+   ``ProfileSession`` on the card, 16 requests (3 and 7 of 192 tokens),
+   every request finished, a long request ranked first, a finite
+   ``what_if``.  Before the full width, the tiny deepseek-7b ``Engine``
+   in float32 on the card and on the CPU over the same 16 requests (its
+   in-place writes, slot reuse and ring wrap): every output token equal.
+   After the run, the serving copy's bfloat16 forward and decode logits
+   against the float32 forward at rtol/atol 0.15 (the reference's bf16
+   bound).  Then 8 decode steps under ``torch.profiler`` (the device's
+   busy time and kernels a step), and the same flow without and with
+   the session in turns, twice each: ms a step against the decode step's
+   byte bound, tokens/s, the host's issue time, the session's drains and
+   their latency, and the GAPP overhead ratio (printed, not held to a
+   limit).
+
+Each path of phases 3-7 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -62,12 +84,13 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-6), and ``{"ok": true,
+``launches`` summed over the paths of phases 3-7), and ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
 and ``torch.profiler``: the host functions that take the time, and the
-device's busy time and idle share over the run.
+device's busy time and idle share over the run; and the host's time by
+function over phase 7's profiled decode steps (cProfile).
 ``--kernels-only --src DIR`` times the kernels of the ``repro_torch`` under
 ``DIR`` (another checkout's) at the same shapes, phases 2 and the key
 histogram only, to set two versions side by side in one run.
@@ -76,8 +99,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -899,6 +924,7 @@ def main(argv=None) -> int:
                               export, ops))
     runs["live session"] = live_path(ops)
     runs["fleet"] = fleet_path(ops)
+    runs["serve"] = serve_path(ops, dev, host_profile=args.profile)
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
     if args.profile:
@@ -1245,6 +1271,392 @@ def fleet_path(ops) -> dict:
           f"speedup {want.speedup:.4f}, launches {launches}")
     check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
           f"fleet launched {launches}")
+    return launches
+
+
+# -- phase 7: the serving path -----------------------------------------------
+
+#: tiny archs held card against CPU: dense MHA, GQA with qk_norm, local +
+#: global with tied embeddings, MoE with logit softcap
+SERVE_TINY_ARCHS = ("deepseek-7b", "qwen3-32b", "gemma3-1b", "grok-1-314b")
+SERVE_ARCH = "deepseek-7b"
+
+
+def forward_and_decode(params, cfg, tokens):
+    """Forward logits over ``tokens`` (B, T) and the logits of T
+    teacher-forced decode steps from a zeroed cache of T slots, stacked to
+    (B, T, V), both on the host."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state
+    b, t_len = tokens.shape
+    dev = tokens.device
+    full, _ = forward(params, {"tokens": tokens}, cfg)
+    state = init_decode_state(cfg, b, t_len, device=dev)
+    steps = []
+    for t in range(t_len):
+        lg, state = decode_step(params, tokens[:, t], torch.full(
+            (b,), t, dtype=torch.int32, device=dev), state, cfg)
+        steps.append(lg)
+    return full.cpu(), torch.stack(steps, 1).cpu()
+
+
+def _max_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def tiny_archs_on_card(dev) -> None:
+    """Four tiny archs in float32, the same parameters (drawn on the CPU
+    from the seed, then copied to the card): forward and 8 teacher-forced
+    decode steps on both devices, held at rtol/atol 1e-4 (float32 products
+    without TF32, summed in another order)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_map
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    for arch in SERVE_TINY_ARCHS:
+        cfg = dataclasses.replace(configs.get_tiny(arch),
+                                  compute_dtype=torch.float32)
+        cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg,
+                        device="cpu")
+        dev_p = tree_map(lambda x: x.to(dev), cpu_p)
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, 8)).astype(np.int32))
+        on_cpu = forward_and_decode(cpu_p, cfg, tokens)
+        on_card = forward_and_decode(dev_p, cfg, tokens.to(dev))
+        diffs = [_max_diff(a, b) for a, b in zip(on_card, on_cpu)]
+        print(f"[serve] tiny {arch} float32, card against CPU: forward max "
+              f"|diff| {diffs[0]:.3e}, decode {diffs[1]:.3e} (rtol/atol "
+              f"1e-4)")
+        for what, a, b in zip(("forward", "decode"), on_card, on_cpu):
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"tiny {arch}: {what} on the card off the CPU's")
+
+
+def full_width_float32(params, cfg, dev) -> None:
+    """deepseek-7b at full width, computing in float32 on the masters
+    themselves: B = 2 sequences of T = 8 tokens from the seed, teacher-
+    forced ``decode_step`` at positions 0..7 against ``forward`` at every
+    position, held at rtol/atol 1e-3 (the same float32 products, grouped
+    by cuBLAS differently for 2 and 16 rows; logits are ~N(0, 1))."""
+    import torch
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(dev)
+    t = time.perf_counter()
+    full, dec = forward_and_decode(params, cfg32, tokens)
+    secs = time.perf_counter() - t
+    d = _max_diff(full, dec)
+    ok = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    print(f"[serve] full-width {cfg.name} float32, decode against forward "
+          f"at 8 positions x 2 sequences: max |diff| {d:.3e} (rtol/atol "
+          f"1e-3), logits {tuple(full.shape)} finite {ok}, {secs:.2f} s")
+    check(ok and torch.allclose(dec, full, rtol=1e-3, atol=1e-3),
+          f"full-width float32 decode off forward by {d:.3e}")
+    return tokens, full
+
+
+def engine_on_card(dev) -> None:
+    """The ``Engine`` on the card against the same engine on the CPU: tiny
+    deepseek-7b in float32, the same parameters (drawn on the CPU from the
+    seed, then copied), 8 slots and a 128-slot cache over the serve_engine
+    example's 16 requests; every request's output tokens equal.  This runs
+    the engine's in-place token and position writes, the reuse of a slot
+    by a later request and the long requests' wrap of the cache ring."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples.serve_engine import make_requests
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(configs.get_tiny(SERVE_ARCH),
+                              compute_dtype=torch.float32)
+    cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    outs = {}
+    for where, p in (("cpu", cpu_p),
+                     ("card", tree_map(lambda x: x.to(dev), cpu_p))):
+        engine = Engine(cfg, p, batch_slots=8, cache_len=128,
+                        device="cpu" if where == "cpu" else dev)
+        done = engine.run(make_requests(cfg.vocab_size))
+        outs[where] = {r.rid: list(r.out) for r in done}
+    same = sum(outs["card"].get(rid) == out
+               for rid, out in outs["cpu"].items())
+    print(f"[serve] tiny {SERVE_ARCH} float32 Engine (8 slots, 128-slot "
+          f"cache, 16 requests), card against CPU: {same} of "
+          f"{len(outs['cpu'])} requests' tokens equal, "
+          f"{sum(map(len, outs['card'].values()))} tokens")
+    check(len(outs["cpu"]) == 16 and same == 16,
+          "the Engine's tokens on the card differ from the CPU's")
+
+
+def full_width_bf16(served, cfg, tokens, full32) -> None:
+    """The serving copy (bfloat16 matrices) in bfloat16 compute, forward
+    and 8 teacher-forced decode steps over the float32 check's tokens,
+    held against the float32 forward logits at rtol/atol 0.15, the
+    reference's own bound for its bf16 paths (tests/test_models.py)."""
+    import torch
+    bf = forward_and_decode(served, cfg, tokens)
+    for what, x in zip(("forward", "decode"), bf):
+        x = x.float()
+        agree = float((x.argmax(-1) == full32.argmax(-1)).float().mean())
+        print(f"[serve] full-width {cfg.name} bfloat16 {what} (the serving "
+              f"copy) against float32 forward: max |diff| "
+              f"{_max_diff(x, full32):.3e} (rtol/atol 0.15), argmax "
+              f"agrees at {agree:.4f} of the positions")
+        check(bool(torch.isfinite(x).all())
+              and torch.allclose(x, full32, rtol=0.15, atol=0.15),
+              f"full-width bfloat16 {what} off float32 forward")
+
+
+def decode_bytes(engine) -> int:
+    """Bytes one decode step must move at least: every weight matrix the
+    blocks and the unembedding read (the serving copy), the embedding rows
+    it gathers, the vectors (norm scales, biases) and the whole K/V cache
+    the attention reads; outputs are noise beside them."""
+    from repro_torch.models.common import tree_leaves
+    p = engine.params
+    n = sum(x.numel() * x.element_size() for k, v in p.items()
+            if k != "embed" for x in tree_leaves(v))
+    emb = p["embed"]
+    n += engine.slots * emb.shape[1] * emb.element_size()
+    n += sum(x.numel() * x.element_size() for x in tree_leaves(engine.state))
+    return n
+
+
+def _timed_steps(engine):
+    """Wrap ``engine._step``: per step, the host's issue time (the call,
+    which returns before the device is done) and CUDA events around it."""
+    import torch
+    real = engine._step
+    issue, events = [], []
+
+    def step(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = real(*a, **k)
+        e1.record()
+        issue.append(time.perf_counter() - t)
+        events.append((e0, e1))
+        return out
+    engine._step = step
+    return issue, events
+
+
+def _timed_drains(sess):
+    """Wrap the session tracer's ``sync`` (the drain loop's call): the host
+    latency of every sync, and of those that drained and folded events
+    (each of those launches the fold's prefix on the card)."""
+    real = sess.tracer.sync
+    lat, folded, hooks = [], [], []
+
+    def sync(*a, **k):
+        n = len(hooks)
+        t = time.perf_counter()
+        out = real(*a, **k)
+        lat.append(time.perf_counter() - t)
+        if len(hooks) > n:
+            folded.append(lat[-1])
+        return out
+    sess.tracer.sync = sync
+    sess.tracer.on_drain.append(hooks.append)
+    return lat, folded
+
+
+def serve_run(cfg, params, dev, with_session: bool, *, record=False,
+              ops=None):
+    """One serve_engine flow at full width: an ``Engine`` of 8 slots and a
+    128-slot cache over the example's 16 requests, after one warm-up step,
+    with a GAPP session (n_min None, probe and drain every 2 ms, on the
+    card) or without.
+    Returns the numbers of the run, and with ``record`` its kernel calls
+    held against their plain versions and its launches."""
+    import torch
+    from repro_torch.core import ProfileSession
+    from repro_torch.examples.serve_engine import make_requests, serve, warm_up
+    from repro_torch.serve.engine import Engine
+    sess = None
+    if with_session:
+        sess = ProfileSession(n_min=None, dt=0.002, device=dev)
+    engine = Engine(cfg, params, batch_slots=8, cache_len=128, gapp=sess,
+                    device=dev)
+    warm_up(engine)
+    reqs = make_requests(cfg.vocab_size)
+    issue, events = _timed_steps(engine)
+    lat, folded = _timed_drains(sess) if sess is not None else ([], [])
+    out = {"engine": engine}
+    if record:
+        ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    with recording() if record else contextlib.nullcontext() as calls:
+        finished, wall = serve(engine, reqs, sess)
+        if sess is not None:
+            rep = sess.result()
+            wi = rep.what_if(path=1, shrink=0.0)
+            out.update(rep=rep, what_if=wi)
+        torch.cuda.synchronize()
+    if record:
+        out["launches"] = ops.launch_counts()
+        hold_recorded("serve", calls, out["launches"])
+    steps = len(issue)
+    dev_ms = sum(a.elapsed_time(b) for a, b in events) / steps
+    toks = sum(len(r.out) for r in finished)
+    out.update(
+        finished=finished, wall=wall, steps=steps, tokens=toks,
+        ms_step=wall * 1e3 / steps, dev_ms=dev_ms,
+        issue_ms=sum(issue) * 1e3 / steps, tok_s=toks / wall,
+        drains=len(folded), syncs=len(lat),
+        sync_ms=(sum(lat) * 1e3 / len(lat)) if lat else None,
+        drain_ms=(sum(folded) * 1e3 / len(folded)) if folded else None)
+    return out
+
+
+def decode_breakdown(cfg, params, dev, steps: int = 8,
+                     host_profile: bool = False) -> dict:
+    """Where a decode step's time goes, from ``torch.profiler`` over
+    ``steps`` steps of an engine (no session) with every slot busy: the
+    device's busy time a step (kernels and copies), the launches a step,
+    the share of the matrix products, and the heaviest kernels; with
+    ``host_profile`` also the host's time by function (cProfile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.examples.serve_engine import make_requests
+    from repro_torch.serve.engine import Engine, Request
+    engine = Engine(cfg, params, batch_slots=8, cache_len=128, device=dev)
+    for r in make_requests(cfg.vocab_size)[:8]:
+        engine.submit(Request(r.rid, r.prompt, 10_000))
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    launches = sum(e.count for e in rows) / steps
+    # cuBLAS's matrix-product kernels (nvjet_* on this toolkit)
+    mm = [e for e in rows if any(w in e.key.lower() for w in (
+        "nvjet", "gemm", "gemv", "xmma", "cutlass"))]
+    gemm = sum(e.self_device_time_total for e in mm) / 1e3 / steps
+    gemm_n = sum(e.count for e in mm) / steps
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"wall_ms": wall * 1e3 / steps, "busy_ms": busy,
+           "launches": launches, "gemm_ms": gemm, "gemm_launches": gemm_n,
+           "top": [(e.key[:70], e.self_device_time_total / 1e3 / steps,
+                    e.count // steps) for e in top]}
+    print(f"[serve] decode step under torch.profiler ({steps} steps, 8 "
+          f"busy slots): wall {out['wall_ms']:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * (1 - busy / out['wall_ms']):.1f}% idle), "
+          f"{launches:.0f} kernels and copies a step; matrix products "
+          f"{gemm:.3f} ms in {gemm_n:.0f} kernels, the rest "
+          f"{busy - gemm:.3f} ms in {launches - gemm_n:.0f}")
+    for name, ms, n in out["top"]:
+        print(f"[serve]   {ms:.3f} ms a step, {n} a step: {name}")
+    if not host_profile:
+        return out
+    # the host's side: the calls that take its time, under cProfile alone
+    import cProfile
+    import pstats
+    prog = cProfile.Profile()
+    prog.enable()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    prog.disable()
+    st = pstats.Stats(prog)
+    own = sorted(((v[2], v[1], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
+                  for k, v in st.stats.items()), reverse=True)[:8]
+    print(f"[serve] decode step on the host (cProfile, {steps} steps): "
+          + "; ".join(f"{name} {1e3 * tt / steps:.2f} ms, {n // steps} "
+                      f"calls" for tt, n, name in own))
+    return out
+
+
+def serve_path(ops, dev, host_profile: bool = False) -> dict:
+    """Phase 7: tiny archs and the tiny ``Engine`` card against CPU,
+    deepseek-7b at its published width in float32 (decode against
+    forward), then the serve_engine flow at that width in bfloat16 under a
+    GAPP session (all requests finished, a long request ranked first, a
+    finite what-if, every kernel call held), the serving copy's bfloat16
+    logits against the float32 ones, and the same flow without and with
+    the session in turns, for the numbers.  Returns the recorded run's
+    kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_lm
+    t_phase = time.perf_counter()
+    tiny_archs_on_card(dev)
+    engine_on_card(dev)
+
+    cfg = configs.get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_lm(torch.Generator(dev).manual_seed(SEED), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name} full width: {cfg.param_count():,} "
+          f"parameters, float32 masters drawn on the card in "
+          f"{time.perf_counter() - t:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    tokens, full32 = full_width_float32(params, cfg, dev)
+
+    # the serving copy (bfloat16 matrices) is made once; the masters go
+    run = serve_run(cfg, params, dev, True, record=True, ops=ops)
+    del params
+    served = run["engine"].params
+    torch.cuda.empty_cache()
+    finished, rep, wi = run["finished"], run["rep"], run["what_if"]
+    launches = run["launches"]
+    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; GAPP run: {len(finished)} requests, {run['tokens']} tokens "
+          f"in {run['steps']} steps, {run['wall']:.3f} s, launches {launches}")
+    check(len(finished) == 16 and all(len(r.out) == r.max_new
+                                      for r in finished),
+          "serve: a request did not finish with max_new tokens")
+    top = rep.path_str(rep.paths[0]) if rep.paths else "?"
+    print(f"[serve] top critical path {top} {rep.paths[0].cmetric:.6f} s "
+          f"CMetric; what-if path 1 removed: {wi.speedup:.4f}x "
+          f"(saves {wi.saved_s * 1e3:.3f} ms)")
+    check("req3" in top or "req7" in top, f"serve: top path {top}")
+    check(math.isfinite(wi.speedup), f"serve: what-if speedup {wi.speedup}")
+    check(launches["carry_cumsum"] >= 1, f"serve launched {launches}")
+
+    nbytes = decode_bytes(run["engine"])
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[serve] decode step byte bound: {nbytes / 1e9:.4f} GB "
+          f"(bf16 weights + gathered embedding rows + vectors + the K/V "
+          f"cache), {bound:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    del run
+    full_width_bf16(served, cfg, tokens, full32)
+    brk = decode_breakdown(cfg, served, dev, host_profile=host_profile)
+    timed = {True: [], False: []}
+    for mode in (False, True, False, True):
+        r = serve_run(cfg, served, dev, mode)
+        timed[mode].append(r)
+        label = "with GAPP" if mode else "without GAPP"
+        drains = (f"; session: {r['syncs']} syncs (mean "
+                  f"{r['sync_ms']:.3f} ms), {r['drains']} of them drained "
+                  f"events (mean {r['drain_ms']:.3f} ms)" if mode else "")
+        print(f"[serve] {label}: {r['ms_step']:.3f} ms a step "
+              f"({r['steps']} steps, {100 * bound / r['ms_step']:.1f}% of "
+              f"the bound), {r['tok_s']:.1f} tokens/s; host issue (the "
+              f"step's call) {r['issue_ms']:.3f} ms, CUDA events around "
+              f"the step {r['dev_ms']:.3f} ms, wall - device busy "
+              f"{r['ms_step'] - brk['busy_ms']:.3f} ms{drains}")
+        check(len(r["finished"]) == 16, "serve: timed run lost a request")
+        del r["engine"]
+    mean = {k: sum(r["ms_step"] for r in v) / len(v)
+            for k, v in timed.items()}
+    print(f"[serve] GAPP overhead: {mean[True]:.3f} / {mean[False]:.3f} ms "
+          f"a step = {mean[True] / mean[False]:.4f}; phase 7 "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

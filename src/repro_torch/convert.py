@@ -1,20 +1,25 @@
-"""Carry a capture and a fold state across from plain numpy fields.
+"""Carry a capture, a fold state and model parameters across from numpy.
 
-The profiler has no weights: its state is the capture (event columns, the
-tag and stack registries, the sample buffer) and the chunked fold's carry.
-These functions rebuild the port's objects from plain fields (numpy
-arrays, lists and numbers), so a capture made anywhere (by the JAX package,
-a file, another process) folds through the port unchanged.  Arrays are
-copied; the port's objects share no memory with the fields given.
+The profiler's state is the capture (event columns, the tag and stack
+registries, the sample buffer) and the chunked fold's carry; the model
+workloads' state is a parameter tree.  These functions rebuild the port's
+objects from plain fields (numpy arrays, lists and numbers), so a capture
+or a parameter tree made anywhere (by the JAX package, a file, another
+process) runs through the port unchanged.  Arrays are copied; the port's
+objects share no memory with the fields given.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch import device as device_lib
 
 from repro_torch.core.cmetric import FoldCarry
 from repro_torch.core.events import EventLog
 from repro_torch.core.sampler import SampleBuffer
 from repro_torch.core.tracer import StackRegistry, TagRegistry
+from repro_torch.models.common import tree_map
 
 _LOG_DTYPES = {"times": np.int64, "workers": np.int32, "deltas": np.int8,
                "tags": np.int32, "stacks": np.int32}
@@ -67,3 +72,23 @@ def carry_from_numpy(fields: dict) -> FoldCarry:
         out[k] = np.array(fields[k], np.float64)
     out["open"] = np.array(fields["open"], bool)
     return FoldCarry(**out)
+
+
+def params_from_numpy(tree, device=None):
+    """A parameter tree of the port from one of numpy arrays.
+
+    ``tree`` is nested dicts and lists of arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives for the JAX package's
+    ``init_lm``; the structure and keys are kept.  Each array is copied to
+    ``device`` (the port's default device when None) in its own dtype; a
+    bfloat16 array (``ml_dtypes``) goes through float32, which holds every
+    bfloat16 value exactly."""
+    dev = device_lib.resolve(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+    return tree_map(leaf, tree)

@@ -561,3 +561,95 @@ def test_cuda_session_routes_the_histogram_to_the_card(cuda_device, backend):
     np.testing.assert_allclose(rep.per_worker, oracle.per_worker, rtol=1e-4,
                                atol=1e-6)
     assert rep.paths[0].stack == chip_smoke.INJECTED_PATH
+
+
+def _tiny_f32(arch):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_tiny(arch),
+                               compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b", "gemma3-1b",
+                                  "grok-1-314b"])
+def test_cuda_tiny_arch_matches_cpu(cuda_device, arch):
+    """The model on the card against the same model on the CPU: tiny
+    archs in float32, the same parameters (drawn on the CPU from a seed,
+    then copied), forward over 8 tokens and 8 teacher-forced decode steps.
+    rtol/atol 1e-4: the same float32 products without TF32, summed in
+    another order."""
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_lm)
+    from repro_torch.models.common import tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _tiny_f32(arch)
+    cpu_p = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    dev_p = tree_map(lambda x: x.to(cuda_device), cpu_p)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    outs = {}
+    for dev, p in (("cpu", cpu_p), (cuda_device, dev_p)):
+        tk = tokens.to(dev)
+        full, _ = forward(p, {"tokens": tk}, cfg)
+        state = init_decode_state(cfg, 2, 8, device=dev)
+        steps = []
+        for t in range(8):
+            lg, state = decode_step(p, tk[:, t], torch.full(
+                (2,), t, dtype=torch.int32, device=dev), state, cfg)
+            steps.append(lg)
+        outs[str(dev)] = (full.cpu(), torch.stack(steps, 1).cpu())
+    for a, b in zip(outs[str(cuda_device)], outs["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_cuda_engine_tokens_match_cpu(cuda_device):
+    """The ``Engine`` on the card gives the CPU engine's output tokens:
+    tiny deepseek-7b in float32, the same parameters, 8 slots and a
+    128-slot cache over the serve_engine example's 16 requests (slot
+    reuse, and the long requests wrap the ring)."""
+    from repro_torch.examples.serve_engine import make_requests
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import Engine
+    cfg = _tiny_f32("deepseek-7b")
+    cpu_p = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    outs = {}
+    for dev, p in (("cpu", cpu_p),
+                   (cuda_device, tree_map(lambda x: x.to(cuda_device),
+                                          cpu_p))):
+        engine = Engine(cfg, p, batch_slots=8, cache_len=128, device=dev)
+        done = engine.run(make_requests(cfg.vocab_size))
+        outs[str(dev)] = {r.rid: list(r.out) for r in done}
+    assert len(outs["cpu"]) == 16
+    assert outs[str(cuda_device)] == outs["cpu"]
+
+
+def test_cuda_cache_update_in_place_matches_functional(cuda_device):
+    """``decode_attention`` writes the new K/V into the cache tensors it
+    was given, on the card, with the values of a write into a copy (the
+    reference's functional update), past the end of the ring too."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_lm
+    cfg = _tiny_f32("gemma3-1b")
+    p = init_lm(torch.Generator(cuda_device).manual_seed(0), cfg,
+                device=cuda_device)["groups"][0]["b0"]["attn"]
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    cache = attn.init_kv_cache(cfg, 8, 8, device=cuda_device)
+    rows = torch.arange(8, device=cuda_device)
+    for step in range(11):
+        x = torch.randn((8, 1, cfg.d_model), generator=gen,
+                        device=cuda_device)
+        pos = (torch.arange(8, device=cuda_device, dtype=torch.int32)
+               + step)
+        k_new, v_new = attn._project_kv(p, x, cfg, pos[:, None])
+        want = {n: t.clone() for n, t in cache.items()}
+        want["k"][rows, (pos % 8).long()] = k_new[:, 0]
+        want["v"][rows, (pos % 8).long()] = v_new[:, 0]
+        ptr = cache["k"].data_ptr()
+        _, out = attn.decode_attention(p, x, pos, cache, cfg,
+                                       window=cfg.window)
+        torch.cuda.synchronize()
+        assert out is cache and out["k"].data_ptr() == ptr
+        assert torch.equal(out["k"], want["k"])
+        assert torch.equal(out["v"], want["v"])

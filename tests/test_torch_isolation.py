@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.device, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.core.session, "
-            "repro_torch.fleet, repro_torch.obs\n"
+            "repro_torch.fleet, repro_torch.obs, repro_torch.models, "
+            "repro_torch.configs, repro_torch.sharding, repro_torch.serve, "
+            "repro_torch.examples.serve_engine, "
+            "repro_torch.examples.moe_imbalance\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))\n")
