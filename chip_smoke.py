@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis, live and serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live, serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -73,8 +73,29 @@ Phases (any failure exits non-zero):
    byte bound, tokens/s, the host's issue time, the session's drains and
    their latency, and the GAPP overhead ratio (printed, not held to a
    limit).
+8. Train: the training path.  The same four tiny archs in float32, the
+   same parameters, three ``make_train_step`` steps (backward with remat,
+   AdamW) on the card and on the CPU: each loss and the parameters and
+   moments after the third at rtol/atol 1e-4 (TF32 off).  Then the
+   ``train_lm`` example's flow at gemma3-1b's full published width (26
+   layers, d_model 1152, vocab 262,144, 5:1 local:global with a 512-token
+   window; 999,811,584 parameters, nothing cut), float32 masters drawn on
+   the card from the seed, bf16 compute, B = 4, S = 1,024, each phase a
+   ``Trainer`` under a fused GAPP ``ProfileSession`` on the card: phase 1
+   healthy for 8 steps with one asynchronous checkpoint at its last step
+   (params, mu, nu; ~12 GB in a temporary directory, restored bit for
+   bit, then deleted); phase 2 for 8 steps with the loader slowed to 1.5x
+   phase 1's step.  Held: every loss and grad norm finite, phase 1's last
+   loss below its first, ``trainer``, ``data_loader`` and ``ckpt_writer``
+   workers of the report, a ``data/generate`` path among phase 2's top
+   two.  Printed: ms a step (median), tokens/s, the step's FLOPs against
+   989 TFLOP/s bf16, peak device memory, the checkpoint's bytes, snapshot
+   and write seconds, ``torch.profiler`` over 3 steps (device busy time,
+   kernels a step, the heaviest kernels and host operators), and the
+   GAPP overhead: the healthy flow without and with the session in turns,
+   twice each.
 
-Each path of phases 3-7 runs with every kernel's launch count set to 0
+Each path of phases 3-8 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -84,7 +105,7 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-7), and ``{"ok": true,
+``launches`` summed over the paths of phases 3-8), and ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
@@ -925,6 +946,7 @@ def main(argv=None) -> int:
     runs["live session"] = live_path(ops)
     runs["fleet"] = fleet_path(ops)
     runs["serve"] = serve_path(ops, dev, host_profile=args.profile)
+    runs["train"] = train_path(ops, dev, smi)
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
     if args.profile:
@@ -1513,6 +1535,30 @@ def serve_run(cfg, params, dev, with_session: bool, *, record=False,
     return out
 
 
+def device_summary(prof, steps: int, wall: float) -> dict:
+    """A ``torch.profiler`` run of ``steps`` steps that took ``wall``
+    seconds, a step: the wall, the device's busy time (kernels and
+    copies) and launches, those of the matrix products, and the six
+    heaviest kernels (name, ms, launches)."""
+    import torch
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    # cuBLAS's matrix-product kernels (nvjet_* on this toolkit)
+    mm = [e for e in rows if any(w in e.key.lower() for w in (
+        "nvjet", "gemm", "gemv", "xmma", "cutlass"))]
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall * 1e3 / steps,
+            "busy_ms": sum(e.self_device_time_total for e in rows) / 1e3
+            / steps,
+            "launches": sum(e.count for e in rows) / steps,
+            "gemm_ms": sum(e.self_device_time_total for e in mm) / 1e3
+            / steps,
+            "gemm_launches": sum(e.count for e in mm) / steps,
+            "top": [(e.key[:70], e.self_device_time_total / 1e3 / steps,
+                     e.count // steps) for e in top]}
+
+
 def decode_breakdown(cfg, params, dev, steps: int = 8,
                      host_profile: bool = False) -> dict:
     """Where a decode step's time goes, from ``torch.profiler`` over
@@ -1536,21 +1582,9 @@ def decode_breakdown(cfg, params, dev, steps: int = 8,
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    launches = sum(e.count for e in rows) / steps
-    # cuBLAS's matrix-product kernels (nvjet_* on this toolkit)
-    mm = [e for e in rows if any(w in e.key.lower() for w in (
-        "nvjet", "gemm", "gemv", "xmma", "cutlass"))]
-    gemm = sum(e.self_device_time_total for e in mm) / 1e3 / steps
-    gemm_n = sum(e.count for e in mm) / steps
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    out = {"wall_ms": wall * 1e3 / steps, "busy_ms": busy,
-           "launches": launches, "gemm_ms": gemm, "gemm_launches": gemm_n,
-           "top": [(e.key[:70], e.self_device_time_total / 1e3 / steps,
-                    e.count // steps) for e in top]}
+    out = device_summary(prof, steps, wall)
+    busy, launches = out["busy_ms"], out["launches"]
+    gemm, gemm_n = out["gemm_ms"], out["gemm_launches"]
     print(f"[serve] decode step under torch.profiler ({steps} steps, 8 "
           f"busy slots): wall {out['wall_ms']:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * (1 - busy / out['wall_ms']):.1f}% idle), "
@@ -1656,6 +1690,342 @@ def serve_path(ops, dev, host_profile: bool = False) -> dict:
             for k, v in timed.items()}
     print(f"[serve] GAPP overhead: {mean[True]:.3f} / {mean[False]:.3f} ms "
           f"a step = {mean[True] / mean[False]:.4f}; phase 7 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# -- phase 8: the training path ----------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024      # 1,024 > the 512-token local window
+TRAIN_STEPS = 8                       # a phase of the train_lm flow
+BF16_OPS_PER_S = 989e12               # H100 SXM data sheet, dense bf16
+
+
+def train_steps_tiny(cfg, params, dev, steps: int = 3):
+    """``steps`` float32 ``make_train_step`` steps on ``dev`` from a copy
+    of ``params`` over seeded batches (B = 4, S = 16): the losses and the
+    final ``{"params", "opt"}`` tree on the host."""
+    import torch
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=1, total_steps=10, eps=1e-3))
+    p = tree_map(lambda x: x.to(dev, copy=True), params)
+    s = adamw.init(p)
+    losses = []
+    for i in range(steps):
+        toks = np.random.default_rng(SEED + i).integers(
+            0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        p, s, m, _ = step(p, s, {"tokens": torch.from_numpy(toks).to(dev)},
+                          None)
+        losses.append(float(m["loss"]))
+    return losses, tree_map(lambda x: x.cpu(), {"params": p, "opt": s})
+
+
+def train_tiny_on_card(dev) -> None:
+    """The four tiny archs in float32, the same parameters (drawn on the
+    CPU from the seed): three train steps (backward with remat, AdamW) on
+    the card and on the CPU, each step's loss and the parameters and
+    moments after the third held at rtol/atol 1e-4 (TF32 off; AdamW's eps
+    1e-3, since with 1e-8 a parameter whose gradient is ~1e-8 moves by up
+    to lr either way on the rounding of that gradient)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_items
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    for arch in SERVE_TINY_ARCHS:
+        cfg = dataclasses.replace(configs.get_tiny(arch),
+                                  compute_dtype=torch.float32)
+        cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg,
+                        device="cpu")
+        l_cpu, t_cpu = train_steps_tiny(cfg, cpu_p, "cpu")
+        l_dev, t_dev = train_steps_tiny(cfg, cpu_p, dev)
+        d_tree = max(_max_diff(a, b) for (_, a), (_, b) in zip(
+            tree_items(t_dev), tree_items(t_cpu)))
+        ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for (_, a), (
+            _, b) in zip(tree_items(t_dev), tree_items(t_cpu)))
+        print(f"[train] tiny {arch} float32, 3 steps card against CPU: "
+              f"losses {', '.join(f'{x:.6f}' for x in l_dev)} (CPU "
+              f"{', '.join(f'{x:.6f}' for x in l_cpu)}), params and moments "
+              f"max |diff| {d_tree:.3e} (rtol/atol 1e-4)")
+        check(np.allclose(l_dev, l_cpu, rtol=1e-4, atol=1e-4) and ok,
+              f"tiny {arch}: training on the card off the CPU's")
+
+
+def train_flops(cfg, tokens: int) -> tuple[float, float]:
+    """(FLOPs of one training step, of which attention): 6 N tokens for
+    the products with the weights (the tied embedding counted once, as the
+    unembedding), plus the score and value products of every layer over
+    the whole S x S square this implementation computes (a local layer
+    masks it, it does not skip it), forward and backward (x3); remat's
+    recompute not counted."""
+    s = TRAIN_SEQ
+    attn = 3 * 4 * (tokens // s) * cfg.num_heads * s * s * cfg.hd \
+        * cfg.num_layers
+    return 6.0 * cfg.param_count() * tokens + attn, float(attn)
+
+
+def timed_step(step_fn, times: list):
+    """``step_fn`` with its host time to the end of the step's device work
+    (a read of the loss) appended to ``times``; the trainer's own read of
+    the loss then finds it done."""
+    def step(*a):
+        t = time.perf_counter()
+        out = step_fn(*a)
+        float(out[2]["loss"])
+        times.append(time.perf_counter() - t)
+        return out
+    return step
+
+
+def _ckpt_timing(ckpt_lib):
+    """Wrap ``checkpoint.save``: the host seconds of its synchronous
+    snapshot (the call) and the wall-clock end of the call, to set
+    against the written ``.complete``'s modification time."""
+    real = ckpt_lib.save
+    out = {}
+
+    def save(directory, step, tree, *a, **k):
+        t = time.perf_counter()
+        thread = real(directory, step, tree, *a, **k)
+        out.update(snapshot_s=time.perf_counter() - t, returned=time.time(),
+                   dir=os.path.join(directory, f"step_{step:06d}"))
+        return thread
+    ckpt_lib.save = save
+    return out, lambda: setattr(ckpt_lib, "save", real)
+
+
+def train_breakdown(cfg, step_fn, dev, steps: int = 3) -> dict:
+    """Where a training step's time goes, from ``torch.profiler`` over
+    ``steps`` steps on a fresh state (after one step outside it): the
+    device's busy time and kernels a step, the matrix products' share,
+    the heaviest kernels, and the host's own time by operator."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adamw
+    params = init_lm(torch.Generator(dev).manual_seed(SEED), cfg, device=dev)
+    opt = adamw.init(params)
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    params, opt, m, _ = step_fn(params, opt, batch, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            params, opt, m, _ = step_fn(params, opt, batch, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    out = device_summary(prof, steps, wall)
+    busy, launches = out["busy_ms"], out["launches"]
+    gemm, gemm_n = out["gemm_ms"], out["gemm_launches"]
+    print(f"[train] step under torch.profiler ({steps} steps): wall "
+          f"{out['wall_ms']:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * (1 - busy / out['wall_ms']):.1f}% idle), {launches:.0f} "
+          f"kernels and copies a step; matrix products {gemm:.3f} ms in "
+          f"{gemm_n:.0f}, the rest {busy - gemm:.3f} ms in "
+          f"{launches - gemm_n:.0f}")
+    for name, ms, n in out["top"]:
+        print(f"[train]   device {ms:.3f} ms a step, {n} a step: {name}")
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"[train]   host {e.self_cpu_time_total / 1e3 / steps:.3f} ms "
+              f"a step, {e.count // steps} calls a step: {e.key[:60]}")
+    return out
+
+
+def train_run(cfg, opt_cfg, step_fn, dev, with_session: bool,
+              steps: int = 4) -> dict:
+    """One healthy ``Trainer`` run of ``steps`` steps and no checkpoint,
+    under a fused session on the card (probe every 2 ms) or none; every
+    kernel call of a session held against its plain version."""
+    import torch
+    from repro_torch.core import ProfileSession
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    times = []
+    sess = ProfileSession(dt=0.002, device=dev) if with_session else None
+    tcfg = TrainerConfig(steps=steps, batch_per_host=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, ckpt_every=0, log_every=10**6,
+                         profile=with_session, seed=SEED)
+    tr = Trainer(cfg, opt_cfg, tcfg, gapp=sess,
+                 step_fn=timed_step(step_fn, times), device=dev)
+    lat, folded = _timed_drains(sess) if sess is not None else ([], [])
+    ops.reset_launch_counts()
+    with recording() as calls:
+        t = time.perf_counter()
+        tr.run()
+        wall = time.perf_counter() - t
+        if sess is not None:
+            sess.result()
+        torch.cuda.synchronize()
+    if sess is not None:
+        hold_recorded("train timing", calls, ops.launch_counts())
+    check(all(math.isfinite(h["loss"]) for h in tr.history),
+          "train: a timed run's loss is not finite")
+    return {"ms_step": 1e3 * float(np.median(times)),
+            "mean_ms": 1e3 * float(np.mean(times)),
+            "wall_ms": 1e3 * wall / steps, "syncs": len(lat),
+            "sync_ms": 1e3 * sum(lat) / max(len(lat), 1),
+            "drains": len(folded),
+            "drain_ms": 1e3 * sum(folded) / max(len(folded), 1)}
+
+
+def train_path(ops, dev, card: str) -> dict:
+    """Phase 8: tiny archs' training card against CPU, then the train_lm
+    flow at gemma3-1b's published width on the card under fused GAPP
+    sessions: a healthy phase with one async checkpoint (restored bit for
+    bit, then deleted) and a phase with the loader slowed to 1.5x the
+    step, the slowdown ranked on ``data/generate``; then ``torch.profiler``
+    over 3 steps and the flow without and with the session in turns.
+    Every number printed is this card's (``card``: its name and power
+    limit).  Returns the flow's kernel launches."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.examples.train_lm import (data_bound, loader_delay,
+                                               train_phase)
+    from repro_torch.models.common import tree_items
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig
+    import gc
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    gc.collect()
+    print(f"[train] card: {card}; the process holds {len(gc.get_objects()):,}"
+          f" tracked objects (a full collection {time.perf_counter() - t:.3f}"
+          f" s) and threads {[th.name for th in threading.enumerate()]}")
+    train_tiny_on_card(dev)
+    print(f"[train] tiny archs {time.perf_counter() - t_phase:.1f} s")
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    n = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, attn = train_flops(cfg, tokens)
+    bound = flops / BF16_OPS_PER_S * 1e3
+    print(f"[train] {cfg.name} full width: {n:,} parameters ({cfg.num_layers}"
+          f" layers, d_model {cfg.d_model}, vocab {cfg.vocab_size:,}), bf16 "
+          f"compute over float32 masters, B = {TRAIN_BATCH}, S = "
+          f"{TRAIN_SEQ}: {flops / 1e12:.3f} TFLOP a step (attention "
+          f"{attn / 1e12:.3f}), compute bound {bound:.3f} ms at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16")
+    check(n == 999_811_584, f"gemma3-1b has {n} parameters")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                total_steps=2 * TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = tempfile.mkdtemp(prefix="gapp-train-ckpt-")
+    times1, times2 = [], []
+    timing, unwrap = _ckpt_timing(checkpoint)
+    ops.reset_launch_counts()
+    try:
+        with recording() as calls:
+            # ckpt_every past the run: only the final checkpoint, at step 8
+            tcfg = TrainerConfig(steps=TRAIN_STEPS, batch_per_host=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, ckpt_every=10**6,
+                                 ckpt_dir=ckpt_dir, log_every=4, seed=SEED)
+            t1, params, opt = train_phase(cfg, opt_cfg, tcfg,
+                                          timed_step(step_fn, times1), dev)
+            rep1 = t1.profile_report()
+            launches1 = ops.launch_counts()
+            unwrap()
+            # the checkpoint of the state phase 1 ended with, restored
+            # before phase 2 draws its own
+            check(checkpoint.latest_step(ckpt_dir) == TRAIN_STEPS,
+                  f"train: latest checkpoint "
+                  f"{checkpoint.latest_step(ckpt_dir)}")
+            nbytes = sum(os.path.getsize(os.path.join(timing["dir"], f))
+                         for f in os.listdir(timing["dir"]))
+            write_s = os.path.getmtime(os.path.join(
+                timing["dir"], ".complete")) - timing["returned"]
+            state = {"params": params, "opt": opt}
+            t = time.perf_counter()
+            back = checkpoint.restore(ckpt_dir, TRAIN_STEPS, state,
+                                      device=dev)
+            restore_s = time.perf_counter() - t
+            same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                tree_items(back), tree_items(state)))
+            del back, state, params, opt
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            delay, step_s = loader_delay(t1)
+            tcfg2 = dataclasses.replace(tcfg, ckpt_every=0,
+                                        loader_delay_s=delay)
+            t2, _, _ = train_phase(cfg, opt_cfg, tcfg2,
+                                   timed_step(step_fn, times2), dev)
+            rep2 = t2.profile_report()
+            torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hold_recorded("train", calls, launches)
+        del calls
+    finally:
+        unwrap()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"[train] checkpoint at step {TRAIN_STEPS}: {nbytes / 1e9:.3f} GB "
+          f"(params, mu, nu), snapshot to the host {timing['snapshot_s']:.3f}"
+          f" s, written in {write_s:.3f} s on the writer thread, restored in "
+          f"{restore_s:.3f} s, bit-equal {same}")
+    check(same, "train: the restored checkpoint differs from the state saved")
+
+    hist = t1.history + t2.history
+    l1 = [h["loss"] for h in t1.history]
+    norms = [h["grad_norm"] for h in t1.history]
+    print(f"[train] phase 1 (healthy): losses "
+          f"{', '.join(f'{x:.4f}' for x in l1)}; grad norms "
+          f"{', '.join(f'{x:.3f}' for x in norms)}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), "train: a loss or grad norm is not finite")
+    check(l1[-1] < l1[0], f"train: phase 1's loss did not drop: {l1}")
+    check({"trainer", "data_loader", "ckpt_writer"} <= set(rep1.worker_names),
+          f"train: workers {rep1.worker_names}")
+    top1 = [rep1.path_str(p) for p in rep1.paths[:2]]
+    top2 = [rep2.path_str(p) for p in rep2.paths[:2]]
+    print(f"[train] phase 1 top paths {top1}; loader stall for phase 2 "
+          f"{delay * 1e3:.1f} ms (1.5x the {step_s * 1e3:.1f} ms phase-1 "
+          f"step by the trainer's CMetric); phase 2 top paths {top2}")
+    check(data_bound(rep2), f"train: phase 2's top paths {top2}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"train launched {launches}")
+    med = 1e3 * float(np.median(times1))
+    print(f"[train] phase 1: {med:.3f} ms a step (median of {len(times1)}; "
+          f"first {times1[0] * 1e3:.3f} ms), {tokens / med * 1e3:.1f} tokens/s,"
+          f" {flops / (med * 1e-3) / 1e12:.1f} TFLOP/s = "
+          f"{100 * bound / med:.2f}% of {BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s bf16; peak device memory {peak / 1e9:.2f} GB; launches "
+          f"{launches} (phase 1 alone {launches1})")
+    del t1, t2, rep1, rep2
+    torch.cuda.empty_cache()
+    print(f"[train] the flow at full width: phase 8 at "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    brk = train_breakdown(cfg, step_fn, dev)
+    timed = {True: [], False: []}
+    for mode in (False, True, False, True):
+        r = train_run(cfg, opt_cfg, step_fn, dev, mode)
+        timed[mode].append(r)
+        drains = (f"; session: {r['syncs']} syncs (mean {r['sync_ms']:.3f} "
+                  f"ms), {r['drains']} of them drained events (mean "
+                  f"{r['drain_ms']:.3f} ms)" if mode else "")
+        print(f"[train] {'with' if mode else 'without'} GAPP: "
+              f"{r['ms_step']:.3f} ms a step (median; mean {r['mean_ms']:.3f},"
+              f" wall {r['wall_ms']:.3f} a step), "
+              f"{tokens / r['ms_step'] * 1e3:.1f} tokens/s, "
+              f"{100 * bound / r['ms_step']:.2f}% of the compute bound; "
+              f"step - device busy {r['ms_step'] - brk['busy_ms']:.3f} ms"
+              f"{drains}")
+    mean = {k: sum(r["ms_step"] for r in v) / len(v) for k, v in timed.items()}
+    print(f"[train] GAPP overhead: {mean[True]:.3f} / {mean[False]:.3f} ms a "
+          f"step = {mean[True] / mean[False]:.4f}; phase 8 "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 

@@ -1,12 +1,14 @@
-"""Carry a capture, a fold state and model parameters across from numpy.
+"""Carry a capture, a fold state and model trees across from numpy.
 
 The profiler's state is the capture (event columns, the tag and stack
 registries, the sample buffer) and the chunked fold's carry; the model
-workloads' state is a parameter tree.  These functions rebuild the port's
-objects from plain fields (numpy arrays, lists and numbers), so a capture
-or a parameter tree made anywhere (by the JAX package, a file, another
-process) runs through the port unchanged.  Arrays are copied; the port's
-objects share no memory with the fields given.
+workloads' state is a tree: parameters, an optimizer state (``mu``,
+``nu``, ``step``) or a checkpoint tree holding both.  These functions
+rebuild the port's objects from plain fields (numpy arrays, lists and
+numbers), so a capture or a tree made anywhere (by the JAX package, a
+file, another process) runs through the port unchanged, and
+:func:`params_to_numpy` carries a tree back.  Arrays are copied; the
+port's objects share no memory with the fields given.
 """
 from __future__ import annotations
 
@@ -75,11 +77,13 @@ def carry_from_numpy(fields: dict) -> FoldCarry:
 
 
 def params_from_numpy(tree, device=None):
-    """A parameter tree of the port from one of numpy arrays.
+    """A tree of the port from one of numpy arrays.
 
     ``tree`` is nested dicts and lists of arrays, as
-    ``jax.tree.map(np.asarray, params)`` gives for the JAX package's
-    ``init_lm``; the structure and keys are kept.  Each array is copied to
+    ``jax.tree.map(np.asarray, ...)`` gives for the JAX package's
+    ``init_lm`` parameters, its ``adamw.init`` state (the 0-d int32
+    ``step`` included) or a ``{"params": ..., "opt": ...}`` checkpoint
+    tree; the structure and keys are kept.  Each array is copied to
     ``device`` (the port's default device when None) in its own dtype; a
     bfloat16 array (``ml_dtypes``) goes through float32, which holds every
     bfloat16 value exactly."""
@@ -92,3 +96,20 @@ def params_from_numpy(tree, device=None):
                 device=dev, dtype=torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(dev)
     return tree_map(leaf, tree)
+
+
+def params_to_numpy(tree):
+    """A tree of numpy arrays from one of the port's tensors, with every
+    dict's keys in the JAX package's flatten order (sorted), as
+    ``jax.tree.map(np.asarray, ...)`` gives the reference's trees.  A
+    bfloat16 tensor comes back as float32, which holds it exactly."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()

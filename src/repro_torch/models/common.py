@@ -50,7 +50,8 @@ class ModelConfig:
     # numerics / execution
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True               # inert in inference (no backward)
+    remat: bool = True               # recompute each layer group in the
+                                     # backward pass (torch.utils.checkpoint)
     logits_softcap: float = 0.0      # grok uses 30.0
     # beyond-paper perf levers (0 = paper-faithful baseline)
     opt_level: int = 0               # >=1: repeated-KV attention layout
@@ -171,3 +172,39 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_items(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs of ``tree`` in the JAX package's flatten order
+    (``jax.tree_util.tree_flatten_with_path``): dict keys sorted, lists and
+    tuples by index, ``None`` an empty subtree.  A path holds the dict keys
+    and list indices from the root down.  :func:`tree_map` keeps insertion
+    order instead, so anything written or summed in the reference's order
+    (a checkpoint's leaves, the global gradient norm) goes through here."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_items(tree[k],
+                                                              path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_items(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_from_items(tree, leaves):
+    """``tree`` with its leaves replaced by ``leaves``, given in
+    :func:`tree_items` order; the structure and its insertion order are
+    kept."""
+    by_path = dict(zip((path for path, _ in tree_items(tree)), leaves,
+                       strict=True))
+
+    def walk(t, path):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, path + (i,)) for i, v in enumerate(t))
+        return by_path[path]
+    return walk(tree, ())

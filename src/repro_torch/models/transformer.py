@@ -3,9 +3,10 @@
 Layers run as a Python loop over ``num_groups`` pattern groups.
 ``scan_layers=True`` (a ``lax.scan`` over stacked group params in the JAX
 package) runs the same loop and gives equal results.  ``cfg.remat`` (the
-reference's ``jax.checkpoint`` around each group) does nothing here: the
-port runs inference only, with no backward pass to recompute for;
-``torch.utils.checkpoint`` comes with the training port.
+reference's ``jax.checkpoint`` around each group and the tail) wraps each
+group in ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
+while grad is enabled: the backward pass recomputes a group's activations
+instead of keeping them.  Without grad (serving) it changes nothing.
 
 :func:`decode_step` writes each layer's new K/V into the cache tensors of
 ``state`` in place (see
@@ -13,10 +14,12 @@ port runs inference only, with no backward pass to recompute for;
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import blocks as blk
@@ -154,10 +157,16 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
     groups = [(g, None) for g in params["groups"]]
     if cfg.tail_pattern:
         groups.append((params["tail"], cfg.tail_pattern))
+    remat = cfg.remat and torch.is_grad_enabled()
     for gparams, pattern in groups:
-        x, aux = _group_fn(gparams, x, positions, cfg, memory=memory,
-                           memory_positions=memory_positions,
-                           local_impl=local_impl, pattern=pattern)
+        gfn = functools.partial(_group_fn, cfg=cfg, memory=memory,
+                                memory_positions=memory_positions,
+                                local_impl=local_impl, pattern=pattern)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                gfn, gparams, x, positions, use_reentrant=False)
+        else:
+            x, aux = gfn(gparams, x, positions)
         aux_total = _add_aux(aux_total, aux)
     logits = _unembed(params, x, cfg)
     return logits, (aux_total or {})
@@ -166,7 +175,9 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
 def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     """Next-token cross entropy (mean over non-pad tokens) + MoE aux loss.
 
-    Forward only: the port has no backward pass yet."""
+    Differentiable: ``torch.autograd.grad`` of the loss gives each float32
+    master's gradient in float32 (the ``.to(cdt)`` casts carry it back), as
+    ``jax.grad`` of the reference's does (see ``train.step``)."""
     logits, aux = forward(params, batch, cfg, **fw_kwargs)
     tokens = batch["tokens"]
     if cfg.frontend_dim and not cfg.enc_layers:    # vlm: skip patch prefix

@@ -653,3 +653,49 @@ def test_cuda_cache_update_in_place_matches_functional(cuda_device):
         assert out is cache and out["k"].data_ptr() == ptr
         assert torch.equal(out["k"], want["k"])
         assert torch.equal(out["v"], want["v"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """Three float32 train steps (backward with remat, AdamW) on the card
+    against the CPU from the same parameters: losses and the parameters
+    and moments after the third step at rtol/atol 1e-4 (AdamW's eps 1e-3,
+    as in tests/test_torch_train.py: with eps 1e-8 a parameter whose
+    gradient is ~1e-8 moves either way on its gradient's rounding)."""
+    import chip_smoke
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_items
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _tiny_f32(arch)
+    cpu_p = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    l_cpu, t_cpu = chip_smoke.train_steps_tiny(cfg, cpu_p, "cpu")
+    l_dev, t_dev = chip_smoke.train_steps_tiny(cfg, cpu_p, cuda_device)
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-4)
+    for (path, a), (_, b) in zip(tree_items(t_dev), tree_items(t_cpu)):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(path))
+
+
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
+    """An asynchronous save of a tree on the card, written over right
+    after ``save`` returns (as the next step would), restores onto the
+    card bit for bit with the values of the call."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.optim import adamw
+    cfg = _tiny_f32("deepseek-7b")
+    p = init_lm(torch.Generator(cuda_device).manual_seed(0), cfg,
+                device=cuda_device)
+    tree = {"params": p, "opt": adamw.init(p)}
+    want = tree_map(lambda x: x.cpu(), tree)
+    t = checkpoint.save(str(tmp_path), 4, tree, blocking=False)
+    for _, x in tree_items(tree):
+        x.add_(1)
+    t.join(timeout=60)
+    assert not t.is_alive() and checkpoint.latest_step(str(tmp_path)) == 4
+    out = checkpoint.restore(str(tmp_path), 4, tree, device=cuda_device)
+    for (path, a), (_, b) in zip(tree_items(out), tree_items(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, path
+        assert torch.equal(a.cpu(), b), path

@@ -38,7 +38,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.fleet, repro_torch.obs, repro_torch.models, "
             "repro_torch.configs, repro_torch.sharding, repro_torch.serve, "
             "repro_torch.examples.serve_engine, "
-            "repro_torch.examples.moe_imbalance\n"
+            "repro_torch.examples.moe_imbalance, repro_torch.data, "
+            "repro_torch.ft, repro_torch.pipeline, repro_torch.optim, "
+            "repro_torch.train, repro_torch.train.trainer, "
+            "repro_torch.ckpt, repro_torch.examples.train_lm, "
+            "repro_torch.examples.straggler_hunt, "
+            "repro_torch.examples.pipeline_bubbles, "
+            "repro_torch.examples.fleet_profile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))\n")
@@ -109,3 +115,30 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_path_without_a_card_raises(monkeypatch, tmp_path):
+    """The trainer, the straggler monitor, checkpoint restore and the new
+    examples ask for CUDA by default and raise without a card, before any
+    thread starts; with ``device="cpu"`` they run."""
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.examples import (fleet_profile, pipeline_bubbles,
+                                      straggler_hunt, train_lm)
+    from repro_torch.ft import StragglerMonitor
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = TrainerConfig(steps=1, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(configs.get_tiny("deepseek-7b"), adamw.AdamWConfig(), tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StragglerMonitor(4)
+    assert StragglerMonitor(4, device="cpu").session.device.type == "cpu"
+    checkpoint.save(str(tmp_path), 1, {"x": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.restore(str(tmp_path), 1, {"x": torch.zeros(2)})
+    for example in (train_lm, straggler_hunt, pipeline_bubbles,
+                    fleet_profile):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
