@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis, live, serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live, serving, training and recurrent-model paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -94,8 +94,28 @@ Phases (any failure exits non-zero):
    kernels a step, the heaviest kernels and host operators), and the
    GAPP overhead: the healthy flow without and with the session in turns,
    twice each.
+9. Recurrent: the two recurrent archs.  Their tiny configs
+   (recurrentgemma-2b: RG-LRU + local attention; rwkv6-1.6b) in float32,
+   card against CPU: forward and 8 teacher-forced decode steps, and three
+   train steps (rtol/atol 1e-4).  Each at its full published width in
+   float32 on masters drawn on the card from the seed, teacher-forced
+   decode against forward at rtol/atol 1e-3: rwkv6-1.6b (24 layers,
+   d_model 2048, head dim 64, chunk 128, vocab 65,536) at B = 1, T = 256,
+   two whole chunks, where the gap is printed by position and each
+   layer's chunked time mix is held against its steps on the forward's
+   own inputs instead; recurrentgemma-2b (26 layers, d_model 2560, lru
+   2560, window 2048, vocab 256,000) at B = 2, T = 64; each forward's
+   device work under ``torch.profiler`` with its RG-LRU scan or RWKV time
+   mix replayed alone; each bfloat16 serving copy's forward and 4 decode
+   steps equal to the float32 masters' computing in bfloat16, bit for
+   bit, and its logits against float32 printed.  Then phase 7's flow for
+   recurrentgemma-2b at full width: the ``serve_engine`` example's 16
+   requests on an ``Engine`` of 8 slots and a 128-slot cache in bfloat16
+   over the float32 masters under a GAPP session (every request finished,
+   a long request ranked first, every kernel call held), the decode
+   step's device work, and without/with the session in turns.
 
-Each path of phases 3-8 runs with every kernel's launch count set to 0
+Each path of phases 3-9 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -105,7 +125,7 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-8), and ``{"ok": true,
+``launches`` summed over the paths of phases 3-9), and ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
@@ -947,6 +967,8 @@ def main(argv=None) -> int:
     runs["fleet"] = fleet_path(ops)
     runs["serve"] = serve_path(ops, dev, host_profile=args.profile)
     runs["train"] = train_path(ops, dev, smi)
+    runs["recurrent"] = recurrent_path(ops, dev, smi,
+                                       host_profile=args.profile)
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
     if args.profile:
@@ -1326,8 +1348,8 @@ def _max_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def tiny_archs_on_card(dev) -> None:
-    """Four tiny archs in float32, the same parameters (drawn on the CPU
+def tiny_archs_on_card(dev, archs=SERVE_TINY_ARCHS, tag="serve") -> None:
+    """Tiny ``archs`` in float32, the same parameters (drawn on the CPU
     from the seed, then copied to the card): forward and 8 teacher-forced
     decode steps on both devices, held at rtol/atol 1e-4 (float32 products
     without TF32, summed in another order)."""
@@ -1337,7 +1359,7 @@ def tiny_archs_on_card(dev) -> None:
     from repro_torch.models.common import tree_map
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls would run in TF32")
-    for arch in SERVE_TINY_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(configs.get_tiny(arch),
                                   compute_dtype=torch.float32)
         cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg,
@@ -1348,7 +1370,7 @@ def tiny_archs_on_card(dev) -> None:
         on_cpu = forward_and_decode(cpu_p, cfg, tokens)
         on_card = forward_and_decode(dev_p, cfg, tokens.to(dev))
         diffs = [_max_diff(a, b) for a, b in zip(on_card, on_cpu)]
-        print(f"[serve] tiny {arch} float32, card against CPU: forward max "
+        print(f"[{tag}] tiny {arch} float32, card against CPU: forward max "
               f"|diff| {diffs[0]:.3e}, decode {diffs[1]:.3e} (rtol/atol "
               f"1e-4)")
         for what, a, b in zip(("forward", "decode"), on_card, on_cpu):
@@ -1356,27 +1378,141 @@ def tiny_archs_on_card(dev) -> None:
                   f"tiny {arch}: {what} on the card off the CPU's")
 
 
-def full_width_float32(params, cfg, dev) -> None:
-    """deepseek-7b at full width, computing in float32 on the masters
-    themselves: B = 2 sequences of T = 8 tokens from the seed, teacher-
-    forced ``decode_step`` at positions 0..7 against ``forward`` at every
-    position, held at rtol/atol 1e-3 (the same float32 products, grouped
-    by cuBLAS differently for 2 and 16 rows; logits are ~N(0, 1))."""
+def full_width_float32(params, cfg, dev, batch=2, t_len=8,
+                       tag="serve", hold=True) -> None:
+    """A model at full width, computing in float32 on the masters
+    themselves: ``batch`` sequences of ``t_len`` tokens from the seed,
+    teacher-forced ``decode_step`` at every position against ``forward``,
+    held at rtol/atol 1e-3 (the same float32 products, grouped by cuBLAS
+    differently for the step's rows and the sequence's; a recurrent
+    block's scan or chunked form against its step form; logits are
+    ~N(0, 1)).  ``hold`` False prints the gap by position instead (see
+    :func:`rwkv_chunked_against_steps`)."""
     import torch
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(dev)
+        0, cfg.vocab_size, (batch, t_len)).astype(np.int32)).to(dev)
     t = time.perf_counter()
     full, dec = forward_and_decode(params, cfg32, tokens)
     secs = time.perf_counter() - t
     d = _max_diff(full, dec)
     ok = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
-    print(f"[serve] full-width {cfg.name} float32, decode against forward "
-          f"at 8 positions x 2 sequences: max |diff| {d:.3e} (rtol/atol "
-          f"1e-3), logits {tuple(full.shape)} finite {ok}, {secs:.2f} s")
-    check(ok and torch.allclose(dec, full, rtol=1e-3, atol=1e-3),
-          f"full-width float32 decode off forward by {d:.3e}")
+    print(f"[{tag}] full-width {cfg.name} float32, decode against forward "
+          f"at {t_len} positions x {batch} sequences: max |diff| {d:.3e} "
+          f"({'rtol/atol 1e-3' if hold else 'printed'}), logits "
+          f"{tuple(full.shape)} finite {ok}, {secs:.2f} s")
+    check(ok, f"{tag}: full-width float32 logits not finite")
+    if hold:
+        check(torch.allclose(dec, full, rtol=1e-3, atol=1e-3),
+              f"full-width float32 decode off forward by {d:.3e}")
+    else:
+        by_pos = (dec.double() - full.double()).abs().amax(dim=(0, 2))
+        over = (dec - full).abs() > 1e-3 + 1e-3 * full.abs()
+        print(f"[{tag}]   by position: t=0 {float(by_pos[0]):.3e}, "
+              f"t>=1 at most {float(by_pos[1:].max()):.3e} (t="
+              f"{int(by_pos[1:].argmax()) + 1}); logits past rtol/atol 1e-3"
+              f" at positions {sorted(set(over.nonzero()[:, 1].tolist()))}")
     return tokens, full
+
+
+def rwkv_chunked_against_steps(params, cfg, tokens, tag="recurrent") -> None:
+    """RWKV-6's chunked time mix at full width against its token-by-token
+    form, layer by layer on the float32 forward's own inputs: each
+    layer's ``rwkv_tmix`` over the whole sequence from a zero state
+    against T ``rwkv_tmix_step`` calls, outputs and final state held at
+    rtol/atol 1e-3 (the two forms are equal in exact arithmetic).  Also
+    printed: the median and the smallest per-head mean squares of the time
+    mix's output before its group norm (``ln_x``, an RMS norm with eps
+    1e-6, which scales each head to unit size and so carries a small
+    head's rounding to the logits unscaled), beside the logits' gap by
+    position that :func:`full_width_float32` prints."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models import recurrent as rec
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    real, real_norm = rec.rwkv_tmix, rec.rms_norm
+    inputs, squares = [], []
+
+    def spy(p, x, c, state=None):
+        inputs.append((p, x))
+        return real(p, x, c, state)
+
+    def norm_spy(x, scale, eps=1e-6):
+        squares.append((x.float() ** 2).mean(-1)[0])     # (S, NH)
+        return real_norm(x, scale, eps)
+    rec.rwkv_tmix = spy
+    try:
+        with torch.no_grad():
+            forward(params, {"tokens": tokens}, cfg32)
+    finally:
+        rec.rwkv_tmix = real
+    t = time.perf_counter()
+    worst = (0.0, -1)
+    with torch.no_grad():
+        for layer, (p, x) in enumerate(inputs):
+            rec.rms_norm = norm_spy
+            try:
+                y, st = real(p, x, cfg32)
+            finally:
+                rec.rms_norm = real_norm
+            s = rec.init_rwkv_state(cfg32, x.shape[0], device=x.device)
+            ys = []
+            for i in range(x.shape[1]):
+                yi, s = rec.rwkv_tmix_step(p, x[:, i:i + 1], s, cfg32)
+                ys.append(yi)
+            ys = torch.cat(ys, 1)
+            d = max(_max_diff(y, ys), _max_diff(st["s"], s["s"]))
+            worst = max(worst, (d, layer))
+            check(torch.allclose(ys, y, rtol=1e-3, atol=1e-3)
+                  and torch.allclose(s["s"], st["s"], rtol=1e-3, atol=1e-3),
+                  f"{tag}: layer {layer}'s chunked time mix off its steps by "
+                  f"{d:.3e}")
+    sq = torch.stack(squares)                            # (L, S, NH)
+    low = sq.flatten().argsort()[:8].tolist()
+    n_s, n_h = sq.shape[1], sq.shape[2]
+    where = ", ".join(f"t={i // n_h % n_s} layer {i // (n_s * n_h)} "
+                      f"{float(sq.flatten()[i]):.2e}" for i in low)
+    print(f"[{tag}] {cfg.name} chunked time mix against {tokens.shape[1]} "
+          f"steps, every layer on the forward's inputs: max |diff| "
+          f"{worst[0]:.3e} (layer {worst[1]}; rtol/atol 1e-3), "
+          f"{time.perf_counter() - t:.2f} s; per-head mean square before "
+          f"the group norm: median {float(sq.median()):.2e}, smallest "
+          f"{where}")
+
+
+def serving_copy_on_card(params, cfg, tokens, full32, tag="recurrent"):
+    """The serving copy (bf16 matrices, the float32 ones kept) against the
+    float32 masters at full width, both computing in bf16: forward and 4
+    decode steps equal bit for bit (the copy gives the per-call casts'
+    values).  The bf16 logits against the float32 ones are printed."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state
+    from repro_torch.serve.engine import _serving_params
+    served = _serving_params(params, cfg)
+    b = tokens.shape[0]
+    out = {}
+    with torch.no_grad():
+        for name, p in (("masters", params), ("copy", served)):
+            full, _ = forward(p, {"tokens": tokens}, cfg)
+            state = init_decode_state(cfg, b, 4, device=tokens.device)
+            steps = []
+            for t in range(4):
+                lg, state = decode_step(p, tokens[:, t], torch.full(
+                    (b,), t, dtype=torch.int32, device=tokens.device), state,
+                    cfg)
+                steps.append(lg)
+            out[name] = (full, torch.stack(steps, 1))
+    same = all(torch.equal(a, c) for a, c in zip(out["masters"],
+                                                 out["copy"]))
+    bf = out["copy"][0].float().cpu()
+    agree = float((bf.argmax(-1) == full32.argmax(-1)).float().mean())
+    print(f"[{tag}] full-width {cfg.name} bfloat16: the serving copy's "
+          f"forward and 4 decode steps equal the masters' bit for bit "
+          f"{same}; against the float32 forward (printed): max |diff| "
+          f"{_max_diff(bf, full32):.3e}, argmax agrees at {agree:.4f} of "
+          f"the positions")
+    check(same, f"{tag}: the serving copy's bf16 logits differ from the "
+          f"masters'")
 
 
 def engine_on_card(dev) -> None:
@@ -1412,36 +1548,45 @@ def engine_on_card(dev) -> None:
           "the Engine's tokens on the card differ from the CPU's")
 
 
-def full_width_bf16(served, cfg, tokens, full32) -> None:
+def full_width_bf16(served, cfg, tokens, full32, tag="serve",
+                    hold=True) -> None:
     """The serving copy (bfloat16 matrices) in bfloat16 compute, forward
-    and 8 teacher-forced decode steps over the float32 check's tokens,
-    held against the float32 forward logits at rtol/atol 0.15, the
-    reference's own bound for its bf16 paths (tests/test_models.py)."""
+    and a teacher-forced decode step at every position of the float32
+    check's tokens, held against the float32 forward logits at rtol/atol
+    0.15, the reference's own bound for its bf16 paths
+    (tests/test_models.py); ``hold`` False prints the gap (phase 9:
+    :func:`serving_copy_on_card` holds the copy instead)."""
     import torch
     bf = forward_and_decode(served, cfg, tokens)
     for what, x in zip(("forward", "decode"), bf):
         x = x.float()
         agree = float((x.argmax(-1) == full32.argmax(-1)).float().mean())
-        print(f"[serve] full-width {cfg.name} bfloat16 {what} (the serving "
+        print(f"[{tag}] full-width {cfg.name} bfloat16 {what} (the serving "
               f"copy) against float32 forward: max |diff| "
-              f"{_max_diff(x, full32):.3e} (rtol/atol 0.15), argmax "
+              f"{_max_diff(x, full32):.3e} "
+              f"({'rtol/atol 0.15' if hold else 'printed'}), argmax "
               f"agrees at {agree:.4f} of the positions")
-        check(bool(torch.isfinite(x).all())
-              and torch.allclose(x, full32, rtol=0.15, atol=0.15),
-              f"full-width bfloat16 {what} off float32 forward")
+        check(bool(torch.isfinite(x).all()),
+              f"full-width bfloat16 {what} not finite")
+        if hold:
+            check(torch.allclose(x, full32, rtol=0.15, atol=0.15),
+                  f"full-width bfloat16 {what} off float32 forward")
 
 
 def decode_bytes(engine) -> int:
     """Bytes one decode step must move at least: every weight matrix the
     blocks and the unembedding read (the serving copy), the embedding rows
-    it gathers, the vectors (norm scales, biases) and the whole K/V cache
-    the attention reads; outputs are noise beside them."""
+    it gathers (the whole table where the unembedding is tied to it), the
+    vectors (norm scales, biases) and the whole decode state the step
+    reads (K/V caches, recurrent states); outputs are noise beside
+    them."""
     from repro_torch.models.common import tree_leaves
     p = engine.params
     n = sum(x.numel() * x.element_size() for k, v in p.items()
             if k != "embed" for x in tree_leaves(v))
     emb = p["embed"]
-    n += engine.slots * emb.shape[1] * emb.element_size()
+    rows = emb.shape[0] if engine.cfg.tie_embeddings else engine.slots
+    n += rows * emb.shape[1] * emb.element_size()
     n += sum(x.numel() * x.element_size() for x in tree_leaves(engine.state))
     return n
 
@@ -1488,7 +1633,7 @@ def _timed_drains(sess):
 
 
 def serve_run(cfg, params, dev, with_session: bool, *, record=False,
-              ops=None):
+              ops=None, tag="serve"):
     """One serve_engine flow at full width: an ``Engine`` of 8 slots and a
     128-slot cache over the example's 16 requests, after one warm-up step,
     with a GAPP session (n_min None, probe and drain every 2 ms, on the
@@ -1521,7 +1666,7 @@ def serve_run(cfg, params, dev, with_session: bool, *, record=False,
         torch.cuda.synchronize()
     if record:
         out["launches"] = ops.launch_counts()
-        hold_recorded("serve", calls, out["launches"])
+        hold_recorded(tag, calls, out["launches"])
     steps = len(issue)
     dev_ms = sum(a.elapsed_time(b) for a, b in events) / steps
     toks = sum(len(r.out) for r in finished)
@@ -1560,7 +1705,7 @@ def device_summary(prof, steps: int, wall: float) -> dict:
 
 
 def decode_breakdown(cfg, params, dev, steps: int = 8,
-                     host_profile: bool = False) -> dict:
+                     host_profile: bool = False, tag="serve") -> dict:
     """Where a decode step's time goes, from ``torch.profiler`` over
     ``steps`` steps of an engine (no session) with every slot busy: the
     device's busy time a step (kernels and copies), the launches a step,
@@ -1585,14 +1730,14 @@ def decode_breakdown(cfg, params, dev, steps: int = 8,
     out = device_summary(prof, steps, wall)
     busy, launches = out["busy_ms"], out["launches"]
     gemm, gemm_n = out["gemm_ms"], out["gemm_launches"]
-    print(f"[serve] decode step under torch.profiler ({steps} steps, 8 "
+    print(f"[{tag}] decode step under torch.profiler ({steps} steps, 8 "
           f"busy slots): wall {out['wall_ms']:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * (1 - busy / out['wall_ms']):.1f}% idle), "
           f"{launches:.0f} kernels and copies a step; matrix products "
           f"{gemm:.3f} ms in {gemm_n:.0f} kernels, the rest "
           f"{busy - gemm:.3f} ms in {launches - gemm_n:.0f}")
     for name, ms, n in out["top"]:
-        print(f"[serve]   {ms:.3f} ms a step, {n} a step: {name}")
+        print(f"[{tag}]   {ms:.3f} ms a step, {n} a step: {name}")
     if not host_profile:
         return out
     # the host's side: the calls that take its time, under cProfile alone
@@ -1607,7 +1752,7 @@ def decode_breakdown(cfg, params, dev, steps: int = 8,
     st = pstats.Stats(prog)
     own = sorted(((v[2], v[1], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
                   for k, v in st.stats.items()), reverse=True)[:8]
-    print(f"[serve] decode step on the host (cProfile, {steps} steps): "
+    print(f"[{tag}] decode step on the host (cProfile, {steps} steps): "
           + "; ".join(f"{name} {1e3 * tt / steps:.2f} ms, {n // steps} "
                       f"calls" for tt, n, name in own))
     return out
@@ -1616,12 +1761,8 @@ def decode_breakdown(cfg, params, dev, steps: int = 8,
 def serve_path(ops, dev, host_profile: bool = False) -> dict:
     """Phase 7: tiny archs and the tiny ``Engine`` card against CPU,
     deepseek-7b at its published width in float32 (decode against
-    forward), then the serve_engine flow at that width in bfloat16 under a
-    GAPP session (all requests finished, a long request ranked first, a
-    finite what-if, every kernel call held), the serving copy's bfloat16
-    logits against the float32 ones, and the same flow without and with
-    the session in turns, for the numbers.  Returns the recorded run's
-    kernel launches."""
+    forward), then :func:`serve_flow` at that width.  Returns the recorded
+    run's kernel launches."""
     import torch
     from repro_torch import configs
     from repro_torch.models import init_lm
@@ -1640,36 +1781,54 @@ def serve_path(ops, dev, host_profile: bool = False) -> dict:
           f"{time.perf_counter() - t:.2f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     tokens, full32 = full_width_float32(params, cfg, dev)
-
-    # the serving copy (bfloat16 matrices) is made once; the masters go
-    run = serve_run(cfg, params, dev, True, record=True, ops=ops)
+    masters = [params]
     del params
+    return serve_flow(ops, dev, cfg, masters, tokens, full32, t_phase,
+                      "serve", 7, host_profile)
+
+
+def serve_flow(ops, dev, cfg, masters: list, tokens, full32, t_phase,
+               tag: str, phase: int, host_profile: bool = False,
+               bf16_hold: bool = True) -> dict:
+    """The serve_engine flow at full width in bfloat16 under a GAPP
+    session (all requests finished, a long request ranked first, a finite
+    what-if, every kernel call held), the serving copy's bfloat16 logits
+    against the float32 ones (``tokens``, ``full32``), ``torch.profiler``
+    over 8 steps, and the same flow without and with the session in
+    turns, for the numbers.  ``masters`` holds the float32 masters alone,
+    so that they are freed once the engine has made its serving copy.
+    Returns the recorded run's kernel launches."""
+    import torch
+    # the serving copy (bfloat16 matrices) is made once; the masters go
+    run = serve_run(cfg, masters.pop(), dev, True, record=True, ops=ops,
+                    tag=tag)
     served = run["engine"].params
     torch.cuda.empty_cache()
     finished, rep, wi = run["finished"], run["rep"], run["what_if"]
     launches = run["launches"]
-    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; GAPP run: {len(finished)} requests, {run['tokens']} tokens "
           f"in {run['steps']} steps, {run['wall']:.3f} s, launches {launches}")
     check(len(finished) == 16 and all(len(r.out) == r.max_new
                                       for r in finished),
-          "serve: a request did not finish with max_new tokens")
+          f"{tag}: a request did not finish with max_new tokens")
     top = rep.path_str(rep.paths[0]) if rep.paths else "?"
-    print(f"[serve] top critical path {top} {rep.paths[0].cmetric:.6f} s "
+    print(f"[{tag}] top critical path {top} {rep.paths[0].cmetric:.6f} s "
           f"CMetric; what-if path 1 removed: {wi.speedup:.4f}x "
           f"(saves {wi.saved_s * 1e3:.3f} ms)")
-    check("req3" in top or "req7" in top, f"serve: top path {top}")
-    check(math.isfinite(wi.speedup), f"serve: what-if speedup {wi.speedup}")
-    check(launches["carry_cumsum"] >= 1, f"serve launched {launches}")
+    check("req3" in top or "req7" in top, f"{tag}: top path {top}")
+    check(math.isfinite(wi.speedup), f"{tag}: what-if speedup {wi.speedup}")
+    check(launches["carry_cumsum"] >= 1, f"{tag} launched {launches}")
 
     nbytes = decode_bytes(run["engine"])
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[serve] decode step byte bound: {nbytes / 1e9:.4f} GB "
-          f"(bf16 weights + gathered embedding rows + vectors + the K/V "
-          f"cache), {bound:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    print(f"[{tag}] decode step byte bound: {nbytes / 1e9:.4f} GB "
+          f"(bf16 weights + the embedding rows read + vectors + the decode "
+          f"state), {bound:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     del run
-    full_width_bf16(served, cfg, tokens, full32)
-    brk = decode_breakdown(cfg, served, dev, host_profile=host_profile)
+    full_width_bf16(served, cfg, tokens, full32, tag=tag, hold=bf16_hold)
+    brk = decode_breakdown(cfg, served, dev, host_profile=host_profile,
+                           tag=tag)
     timed = {True: [], False: []}
     for mode in (False, True, False, True):
         r = serve_run(cfg, served, dev, mode)
@@ -1678,18 +1837,18 @@ def serve_path(ops, dev, host_profile: bool = False) -> dict:
         drains = (f"; session: {r['syncs']} syncs (mean "
                   f"{r['sync_ms']:.3f} ms), {r['drains']} of them drained "
                   f"events (mean {r['drain_ms']:.3f} ms)" if mode else "")
-        print(f"[serve] {label}: {r['ms_step']:.3f} ms a step "
+        print(f"[{tag}] {label}: {r['ms_step']:.3f} ms a step "
               f"({r['steps']} steps, {100 * bound / r['ms_step']:.1f}% of "
               f"the bound), {r['tok_s']:.1f} tokens/s; host issue (the "
               f"step's call) {r['issue_ms']:.3f} ms, CUDA events around "
               f"the step {r['dev_ms']:.3f} ms, wall - device busy "
               f"{r['ms_step'] - brk['busy_ms']:.3f} ms{drains}")
-        check(len(r["finished"]) == 16, "serve: timed run lost a request")
+        check(len(r["finished"]) == 16, f"{tag}: timed run lost a request")
         del r["engine"]
     mean = {k: sum(r["ms_step"] for r in v) / len(v)
             for k, v in timed.items()}
-    print(f"[serve] GAPP overhead: {mean[True]:.3f} / {mean[False]:.3f} ms "
-          f"a step = {mean[True] / mean[False]:.4f}; phase 7 "
+    print(f"[{tag}] GAPP overhead: {mean[True]:.3f} / {mean[False]:.3f} ms "
+          f"a step = {mean[True] / mean[False]:.4f}; phase {phase} "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1724,8 +1883,8 @@ def train_steps_tiny(cfg, params, dev, steps: int = 3):
     return losses, tree_map(lambda x: x.cpu(), {"params": p, "opt": s})
 
 
-def train_tiny_on_card(dev) -> None:
-    """The four tiny archs in float32, the same parameters (drawn on the
+def train_tiny_on_card(dev, archs=SERVE_TINY_ARCHS, tag="train") -> None:
+    """Tiny ``archs`` in float32, the same parameters (drawn on the
     CPU from the seed): three train steps (backward with remat, AdamW) on
     the card and on the CPU, each step's loss and the parameters and
     moments after the third held at rtol/atol 1e-4 (TF32 off; AdamW's eps
@@ -1737,7 +1896,7 @@ def train_tiny_on_card(dev) -> None:
     from repro_torch.models.common import tree_items
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls would run in TF32")
-    for arch in SERVE_TINY_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(configs.get_tiny(arch),
                                   compute_dtype=torch.float32)
         cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg,
@@ -1748,7 +1907,7 @@ def train_tiny_on_card(dev) -> None:
             tree_items(t_dev), tree_items(t_cpu)))
         ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for (_, a), (
             _, b) in zip(tree_items(t_dev), tree_items(t_cpu)))
-        print(f"[train] tiny {arch} float32, 3 steps card against CPU: "
+        print(f"[{tag}] tiny {arch} float32, 3 steps card against CPU: "
               f"losses {', '.join(f'{x:.6f}' for x in l_dev)} (CPU "
               f"{', '.join(f'{x:.6f}' for x in l_cpu)}), params and moments "
               f"max |diff| {d_tree:.3e} (rtol/atol 1e-4)")
@@ -2028,6 +2187,147 @@ def train_path(ops, dev, card: str) -> dict:
           f"step = {mean[True] / mean[False]:.4f}; phase 8 "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# -- phase 9: the recurrent archs ----------------------------------------------
+
+RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
+#: (B, T) of the full-width float32 forward against decode: recurrentgemma
+#: inside its 2,048-token window; rwkv6 two whole chunks of 128
+RECURRENT_FORWARD = {"rwkv6-1.6b": (1, 256), "recurrentgemma-2b": (2, 64)}
+
+
+def profiled(fn, calls: int = 3) -> dict:
+    """:func:`device_summary` of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, after one warm-up call: a call's wall, device busy
+    time and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return device_summary(prof, calls, wall)
+
+
+def recurrent_forward_work(params, cfg, tokens) -> dict:
+    """Where the float32 forward's device time goes: the whole forward
+    over ``tokens`` under ``torch.profiler``, and its recurrent pieces
+    replayed alone on the inputs the forward handed them: the RG-LRU scan
+    (``_rglru_scan``), or RWKV's time mix and its five projections (the
+    chunked form, with its sub-chunk block loop, is the difference).
+    These are the candidates for hand-written kernels; none is built."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models import recurrent as rec
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    name = "rwkv_tmix" if "rwkv" in cfg.block_pattern else "_rglru_scan"
+    real = getattr(rec, name)
+    seen = []
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+    with torch.no_grad():
+        setattr(rec, name, spy)
+        try:
+            forward(params, {"tokens": tokens}, cfg32)
+        finally:
+            setattr(rec, name, real)
+        (args, kw), calls = seen[0], len(seen)
+        del seen
+        whole = profiled(lambda: forward(params, {"tokens": tokens}, cfg32),
+                         1)
+        piece = profiled(lambda: real(*args, **kw), 10)
+        out = {"forward": whole, name: piece, "calls": calls}
+        if name == "rwkv_tmix":
+            p, x, c = args
+            prev = torch.zeros_like(x[:, :1])
+            out["projections"] = profiled(
+                lambda: rec._rwkv_project(p, x, prev, c), 10)
+    b, t_len = tokens.shape
+    print(f"[recurrent] {cfg.name} float32 forward B={b} T={t_len} under "
+          f"torch.profiler: wall {whole['wall_ms']:.3f} ms, device busy "
+          f"{whole['busy_ms']:.3f} ms in {whole['launches']:.0f} kernels and "
+          f"copies; matrix products {whole['gemm_ms']:.3f} ms in "
+          f"{whole['gemm_launches']:.0f}")
+    for what, r in out.items():
+        if what in ("forward", "calls"):
+            continue
+        if not r["launches"]:
+            print(f"[recurrent]   {what} alone: not measured (the profiler "
+                  f"recorded no device activity)")
+            continue
+        print(f"[recurrent]   {what} alone, a call: device busy "
+              f"{r['busy_ms']:.4f} ms in {r['launches']:.0f} launches (wall "
+              f"{r['wall_ms']:.3f} ms); {calls} calls a forward: "
+              f"{r['busy_ms'] * calls:.3f} ms, "
+              f"{r['launches'] * calls:.0f} launches")
+    if name == "rwkv_tmix" and out["projections"]["launches"]:
+        tm, pr = out["rwkv_tmix"], out["projections"]
+        print(f"[recurrent]   the chunked form (time mix less its "
+              f"projections), a call: {tm['busy_ms'] - pr['busy_ms']:.4f} "
+              f"ms in {tm['launches'] - pr['launches']:.0f} launches; "
+              f"{calls} calls: {(tm['busy_ms'] - pr['busy_ms']) * calls:.3f}"
+              f" ms, {(tm['launches'] - pr['launches']) * calls:.0f} launches")
+    return out
+
+
+def recurrent_path(ops, dev, card: str, host_profile: bool = False) -> dict:
+    """Phase 9: the two recurrent archs.  Their tiny configs card against
+    CPU (forward, 8 decode steps, 3 train steps); each at its published
+    width in float32 on masters drawn on the card from the seed: decode
+    against forward (held at 1e-3 for recurrentgemma-2b inside its window;
+    for rwkv6-1.6b over two chunks printed, and each layer's chunked time
+    mix held against its steps), the recurrent pieces' device work, and
+    the bf16 serving copy held bit for bit against the masters; then
+    :func:`serve_flow` serving recurrentgemma-2b under GAPP (the bf16
+    logits against float32 printed there).  Returns the recorded run's
+    kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_lm
+    t_phase = time.perf_counter()
+    print(f"[recurrent] card: {card}")
+    tiny_archs_on_card(dev, RECURRENT_ARCHS, tag="recurrent")
+    train_tiny_on_card(dev, RECURRENT_ARCHS, tag="recurrent")
+    print(f"[recurrent] tiny archs {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kept = None
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b"):
+        cfg = configs.get_config(arch)
+        t = time.perf_counter()
+        params = init_lm(torch.Generator(dev).manual_seed(SEED), cfg,
+                         device=dev)
+        torch.cuda.synchronize()
+        print(f"[recurrent] {cfg.name} full width: {cfg.param_count():,} "
+              f"parameters, float32 masters drawn on the card in "
+              f"{time.perf_counter() - t:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        rwkv = arch == "rwkv6-1.6b"
+        tokens, full32 = full_width_float32(
+            params, cfg, dev, *RECURRENT_FORWARD[arch], tag="recurrent",
+            hold=not rwkv)
+        if rwkv:
+            rwkv_chunked_against_steps(params, cfg, tokens)
+        recurrent_forward_work(params, cfg, tokens)
+        serving_copy_on_card(params, cfg, tokens, full32)
+        if arch == "recurrentgemma-2b":
+            kept = (cfg, [params], tokens, full32)
+        del params, tokens, full32
+        torch.cuda.empty_cache()
+        print(f"[recurrent] {cfg.name} checks done at "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    cfg, masters, tokens, full32 = kept
+    del kept
+    return serve_flow(ops, dev, cfg, masters, tokens, full32, t_phase,
+                      "recurrent", 9, host_profile, bf16_hold=False)
 
 
 if __name__ == "__main__":

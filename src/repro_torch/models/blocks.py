@@ -4,10 +4,10 @@ Block types:
   "dense"  — pre-norm GQA attention + SwiGLU MLP (llama family)
   "local"  — same with sliding-window attention (gemma3, recurrentgemma)
   "moe"    — attention + top-k MoE FFN (grok; arctic via dense_residual)
+  "rglru"  — RG-LRU temporal mix + SwiGLU MLP (recurrentgemma)
+  "rwkv"   — RWKV-6 time mix + channel mix
   "cross"  — self-attention + cross-attention + MLP (enc-dec decoder)
   "encoder"— bidirectional attention + MLP (enc-dec encoder)
-  "rglru", "rwkv" — the recurrent temporal mixes: not ported yet; every
-             entry point raises ``NotImplementedError`` for them.
 
 Every block exposes init / apply (full sequence) / step (one-token decode
 with explicit state) so the same definitions serve prefill and decode.
@@ -19,18 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
 from repro_torch.sharding.api import constrain
-
-RECURRENT_KINDS = ("rglru", "rwkv")
-
-
-def _check_kind(kind: str) -> None:
-    if kind in RECURRENT_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} needs models/recurrent.py, which the port "
-            f"does not have yet (ROADMAP.md §1, the first module still to "
-            f"port: models/recurrent.py and the two recurrent archs)")
 
 
 def init_mlp(gen, cfg: ModelConfig, *, device=None) -> dict:
@@ -51,7 +42,6 @@ def mlp(p, x, cfg: ModelConfig):
 
 
 def init_block(gen, cfg: ModelConfig, kind: str, *, device=None) -> dict:
-    _check_kind(kind)
     pdt = cfg.param_dtype
     d = cfg.d_model
     dev = gen.device if device is None else device
@@ -66,6 +56,14 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device=None) -> dict:
         p["xattn"] = attn_lib.init_attention(gen, cfg, device=device)
         p["ln_x"] = torch.zeros((d,), dtype=pdt, device=dev)
         p["ffn"] = init_mlp(gen, cfg, device=device)
+    elif kind == "rglru":
+        p["mix"] = rec_lib.init_rglru(gen, cfg, device=device)
+        p["ffn"] = init_mlp(gen, cfg, device=device)
+    elif kind == "rwkv":
+        # unused except layer 0 by convention; kept for the tree's keys
+        p["ln0"] = torch.zeros((d,), dtype=pdt, device=dev)
+        p["mix"] = rec_lib.init_rwkv_tmix(gen, cfg, device=device)
+        p["ffn"] = rec_lib.init_rwkv_cmix(gen, cfg, device=device)
     else:
         raise ValueError(kind)
     return p
@@ -74,7 +72,6 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device=None) -> dict:
 def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
                 memory=None, memory_positions=None, local_impl: str = "mask"):
     """Full-sequence forward.  Returns (y, aux)."""
-    _check_kind(kind)
     aux = {}
     x = constrain(x, "batch", "resid_seq", "embed")
     h = constrain(rms_norm(x, p["ln1"]), "batch", "resid_seq", "embed")
@@ -97,6 +94,10 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
                                causal=False)
     elif kind == "cross":
         a = attn_lib.attention(p["attn"], h, positions, cfg, window=None)
+    elif kind == "rglru":
+        a, _ = rec_lib.rglru_block(p["mix"], h, cfg)
+    elif kind == "rwkv":
+        a, _ = rec_lib.rwkv_tmix(p["mix"], h, cfg)
     else:
         raise ValueError(kind)
     x = x + a
@@ -107,6 +108,8 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
     h2 = constrain(rms_norm(x, p["ln2"]), "batch", "resid_seq", "embed")
     if kind == "moe":
         f, aux = moe_lib.moe_ffn(p["ffn"], h2, cfg)
+    elif kind == "rwkv":
+        f, _ = rec_lib.rwkv_cmix(p["ffn"], h2, cfg)
     else:
         f = mlp(p["ffn"], h2, cfg)
     return constrain(x + f, "batch", "resid_seq", "embed"), aux
@@ -118,7 +121,6 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
 
 def init_block_state(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, *, device=None) -> dict:
-    _check_kind(kind)
     if kind in ("dense", "moe", "encoder", "cross"):
         return {"kv": attn_lib.init_kv_cache(cfg, batch, cache_len,
                                              device=device)}
@@ -126,6 +128,13 @@ def init_block_state(cfg: ModelConfig, kind: str, batch: int,
         return {"kv": attn_lib.init_kv_cache(cfg, batch,
                                              min(cfg.window, cache_len),
                                              device=device)}
+    if kind == "rglru":
+        return {"rec": rec_lib.init_rglru_state(cfg, batch, device=device)}
+    if kind == "rwkv":
+        return {"rec": rec_lib.init_rwkv_state(cfg, batch, device=device),
+                "cmix_prev": torch.zeros((batch, 1, cfg.d_model),
+                                         dtype=cfg.compute_dtype,
+                                         device=device)}
     raise ValueError(kind)
 
 
@@ -133,8 +142,8 @@ def step_block(p, x, pos, state, cfg: ModelConfig, kind: str, *,
                memory=None):
     """One-token decode.  x: (B,1,D), pos: i32[B].  Returns (y, new_state);
     the K/V cache in ``state`` is written in place (see
-    :func:`~repro_torch.models.attention.decode_attention`)."""
-    _check_kind(kind)
+    :func:`~repro_torch.models.attention.decode_attention`); a recurrent
+    block's state comes back as new tensors."""
     h = rms_norm(x, p["ln1"])
     new_state = dict(state)
     if kind in ("dense", "moe", "encoder", "cross"):
@@ -143,6 +152,12 @@ def step_block(p, x, pos, state, cfg: ModelConfig, kind: str, *,
     elif kind == "local":
         a, new_state["kv"] = attn_lib.decode_attention(
             p["attn"], h, pos, state["kv"], cfg, window=cfg.window)
+    elif kind == "rglru":
+        a, new_state["rec"] = rec_lib.rglru_step(p["mix"], h, state["rec"],
+                                                 cfg)
+    elif kind == "rwkv":
+        a, new_state["rec"] = rec_lib.rwkv_tmix_step(p["mix"], h,
+                                                     state["rec"], cfg)
     else:
         raise ValueError(kind)
     x = x + a
@@ -156,6 +171,9 @@ def step_block(p, x, pos, state, cfg: ModelConfig, kind: str, *,
     h2 = rms_norm(x, p["ln2"])
     if kind == "moe":
         f, _ = moe_lib.moe_ffn(p["ffn"], h2, cfg)
+    elif kind == "rwkv":
+        f, new_state["cmix_prev"] = rec_lib.rwkv_cmix(
+            p["ffn"], h2, cfg, prev=state["cmix_prev"])
     else:
         f = mlp(p["ffn"], h2, cfg)
     return x + f, new_state

@@ -40,20 +40,28 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return step
 
 
+#: The matrices the model reads in float32 whatever the compute dtype: the
+#: MoE router (``moe_ffn``), RWKV-6's decay projections (``_rwkv_project``)
+#: and its bonus (``rwkv_tmix``, ``rwkv_tmix_step``).
+FLOAT32_MATRICES = frozenset({"router", "decay_w1", "decay_w2", "bonus_u"})
+
+
 def _serving_params(params, cfg: ModelConfig):
     """The tree with every matrix in ``cfg.compute_dtype``, made once.
 
     The model functions cast each matrix to the compute dtype where they
     use it (``.to(cdt)``, a no-op on a matrix already in it), so this copy
     gives the values of the per-call casts without a cast per step.  Norm
-    scales, biases and the float32 MoE router (vectors and ``router``) stay
-    as they are, since the model reads those in float32."""
-    def walk(tree, router=False):
+    scales, biases and the matrices in :data:`FLOAT32_MATRICES` (vectors
+    and those keys) stay as they are, since the model reads those in
+    float32."""
+    def walk(tree, keep=False):
         if isinstance(tree, dict):
-            return {k: walk(v, k == "router") for k, v in tree.items()}
+            return {k: walk(v, k in FLOAT32_MATRICES)
+                    for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v) for v in tree)
-        return tree if router or tree.ndim < 2 else tree.to(cfg.compute_dtype)
+        return tree if keep or tree.ndim < 2 else tree.to(cfg.compute_dtype)
     return walk(params)
 
 
@@ -73,7 +81,8 @@ class Engine:
     with every matrix in the compute dtype (:func:`_serving_params`).
     Like the reference, ``submit`` does not prefill the prompt: a request
     decodes from its last prompt token at position ``len(prompt) - 1``,
-    over cache slots that hold zeros or a previous request's K/V."""
+    over cache slots that hold zeros or a previous request's K/V, and a
+    recurrent block's state, which a slot's previous request left."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int,
                  cache_len: int, gapp=None, *, device=None):

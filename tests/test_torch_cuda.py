@@ -571,7 +571,8 @@ def _tiny_f32(arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b", "gemma3-1b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "recurrentgemma-2b",
+                                  "rwkv6-1.6b"])
 def test_cuda_tiny_arch_matches_cpu(cuda_device, arch):
     """The model on the card against the same model on the CPU: tiny
     archs in float32, the same parameters (drawn on the CPU from a seed,
@@ -655,7 +656,8 @@ def test_cuda_cache_update_in_place_matches_functional(cuda_device):
         assert torch.equal(out["v"], want["v"])
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "grok-1-314b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b"])
 def test_cuda_train_step_matches_cpu(cuda_device, arch):
     """Three float32 train steps (backward with remat, AdamW) on the card
     against the CPU from the same parameters: losses and the parameters
@@ -675,6 +677,36 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
         assert a.dtype == b.dtype, path
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4, err_msg=str(path))
+
+
+@pytest.mark.parametrize("s", [1, 7, 33])
+def test_cuda_recurrent_scans_match_cpu(cuda_device, s):
+    """The associative scan on the card against the same scan on the CPU,
+    both combines (the RG-LRU's pair, RWKV's broadcast pair), lengths that
+    are and are not powers of two; rtol 1e-5 (float32 products and sums in
+    the same tree order, fused differently)."""
+    from repro_torch.models import recurrent as rec
+    rng = np.random.default_rng(s)
+    a = torch.from_numpy(rng.uniform(0.3, 1.0, (2, s, 3, 64)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, s, 3, 64)).astype(
+        np.float32))
+    u = torch.from_numpy(rng.standard_normal((2, s, 3, 64, 64)).astype(
+        np.float32))
+
+    def combine(left, right):
+        a1, u1 = left
+        a2, u2 = right
+        return a1 * a2, a2[..., None] * u1 + u2
+    for dev in ("cpu", cuda_device):
+        got = (rec._rglru_scan(a.to(dev), b.to(dev))
+               + rec.associative_scan(combine, (a.to(dev), u.to(dev))))
+        if dev == "cpu":
+            want = got
+    for x, y in zip(got, want):
+        assert x.is_cuda
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):

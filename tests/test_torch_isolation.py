@@ -44,7 +44,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.ckpt, repro_torch.examples.train_lm, "
             "repro_torch.examples.straggler_hunt, "
             "repro_torch.examples.pipeline_bubbles, "
-            "repro_torch.examples.fleet_profile\n"
+            "repro_torch.examples.fleet_profile, "
+            "repro_torch.models.recurrent, repro_torch.lint, "
+            "repro_torch.lint.watchdog, repro_torch.lint.runner\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))\n")

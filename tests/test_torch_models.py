@@ -29,16 +29,13 @@ from repro.models import common as jcommon
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import attention as tattn
-from repro_torch.models import blocks as tblocks
 from repro_torch.models import common as tcommon
 from repro_torch.models import forward as tforward
 from repro_torch.models import init_lm as tinit_lm
 from repro_torch.models import lm_loss as tlm_loss
 from repro_torch.models import moe as tmoe
 
-#: every arch except the two recurrent ones, whose blocks are not ported
-ARCHS = [a for a in jconfigs.ARCHS
-         if a not in ("recurrentgemma-2b", "rwkv6-1.6b")]
+ARCHS = jconfigs.ARCHS
 F32 = (1e-4, 1e-4)
 BF16 = (0.15, 0.15)
 _DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
@@ -320,18 +317,3 @@ def test_local_impl_chunked_equals_masked():
     b, _ = tforward(tp, batch, tc, local_impl="chunked")
     close(a, b.numpy(), F32)
 
-
-@pytest.mark.parametrize("kind", ["rglru", "rwkv"])
-def test_recurrent_kinds_raise(kind):
-    cfg = tconfigs.get_tiny("rwkv6-1.6b" if kind == "rwkv"
-                            else "recurrentgemma-2b")
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tblocks.init_block(gen, cfg, kind, device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        tblocks.apply_block({}, torch.zeros(1, 2, cfg.d_model),
-                            torch.zeros(1, 2, dtype=torch.int32), cfg, kind)
-    with pytest.raises(NotImplementedError):
-        tblocks.init_block_state(cfg, kind, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tinit_lm(gen, cfg, device="cpu")

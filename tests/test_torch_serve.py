@@ -41,8 +41,7 @@ from repro_torch.models.common import tree_map
 from repro_torch.serve import engine as tengine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = [a for a in jconfigs.ARCHS
-         if a not in ("recurrentgemma-2b", "rwkv6-1.6b")]
+ARCHS = jconfigs.ARCHS
 F32 = (1e-4, 1e-4)
 BF16 = (0.15, 0.15)
 

@@ -8,7 +8,7 @@ seed) go through ``repro`` and ``repro_torch``.  Tolerances: AdamW rtol
 multiply-adds round differently) with atol 1e-8 (a parameter the step
 brings near 0 keeps the step's own error, lr x a few ulps); gradients rtol 1e-4 with atol 1e-6 in float32 (the same
 products summed in another order by another library; small gradients sit
-near the atol); losses over training steps rtol 1e-4; the top-k mask and
+near the atol; rwkv6 atol 1e-5, see ``GRAD_RWKV``); losses over training steps rtol 1e-4; the top-k mask and
 the int8 codes exactly.
 """
 import dataclasses
@@ -33,11 +33,15 @@ from repro_torch.optim import adamw, compression
 from repro_torch.train import step as tstep
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-#: every arch except the two recurrent ones, whose blocks are not ported
-ARCHS = [a for a in jconfigs.ARCHS
-         if a not in ("recurrentgemma-2b", "rwkv6-1.6b")]
+ARCHS = jconfigs.ARCHS
 ADAM = (1e-6, 1e-8)
 GRAD = (1e-4, 1e-6)
+#: rwkv6's tiny loss is ill-conditioned in float32 (its per-head group
+#: norm divides by the norm of each head's output): on most batch seeds
+#: the reference's own float32 gradients differ from a float64 evaluation
+#: by more than GRAD, up to ~1e-4 of a leaf's largest entry, and the
+#: port's by as much
+GRAD_RWKV = (1e-4, 1e-5)
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,15 +272,18 @@ def test_lm_loss_gradients_match_jax_grad(arch):
     give equal gradients."""
     jc, tc = cfg_pair(arch)
     assert tc.remat
-    batch = {k: torch.from_numpy(v) for k, v in batch_np(jc, s=12).items()}
+    # rwkv's chunked form takes whole chunks (8 in the tiny config)
+    s = 16 if arch == "rwkv6-1.6b" else 12
+    batch = {k: torch.from_numpy(v) for k, v in batch_np(jc, s=s).items()}
     loss_fn = tstep.make_loss_fn(tc)
     (loss, _), grads = tstep._value_and_grad(loss_fn, to_t(np_params(arch)),
                                              batch)
-    j_loss, j_grads = _jax_grad(arch, 12)
+    j_loss, j_grads = _jax_grad(arch, s)
     assert float(loss) == pytest.approx(j_loss, rel=1e-5)
     for _, g in tree_items(grads):
         assert g.dtype == torch.float32
-    assert_trees_close(grads, j_grads, GRAD)
+    assert_trees_close(grads, j_grads,
+                       GRAD_RWKV if arch == "rwkv6-1.6b" else GRAD)
     off = tstep.make_loss_fn(dataclasses.replace(tc, remat=False))
     (_, _), grads_off = tstep._value_and_grad(off, to_t(np_params(arch)),
                                               batch)
