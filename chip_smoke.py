@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis, live, serving, training and recurrent-model paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live, serving, training, recurrent-model and multi-rank paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -115,7 +115,35 @@ Phases (any failure exits non-zero):
    a long request ranked first, every kernel call held), the decode
    step's device work, and without/with the session in turns.
 
-Each path of phases 3-9 runs with every kernel's launch count set to 0
+10. Multi-rank: the port's ``launch``, ``sharding``, ``decode_sharded``
+   and ``gpipe`` over worlds of ranks started with ``run_ranks`` (one
+   process a rank): NCCL at one rank, gloo at 2 and 4 ranks sharing the
+   card (NCCL refuses two ranks on one device).  (a) Tiny, card against
+   CPU at rtol/atol 1e-4: flash-decode at the reference test's shapes
+   (B 3, L 64, H 8, KV 2, hd 16, valid lengths 10/40/63) and the
+   reference's gpipe test (tanh layers 16 wide, 6 microbatches, as many
+   stages as ranks) at each world size (the one-rank NCCL world against a
+   one-rank gloo world on the CPU), and tiny deepseek-7b's sharded train
+   step in float32 on a (1, 1) NCCL mesh.  (b) Flash-decode at
+   deepseek-7b's decode width (32 heads, KV 32, hd 128, B 8) over the
+   decode_32k cache of 32,768 slots, each rank holding L/W of it: float32
+   held against the dense single-rank attention over the whole cache at
+   rtol/atol 1e-4; bf16 timed (ms a call, the local attention, the three
+   all-reduces) against the cache's byte bound.  (c) deepseek-7b's 30
+   layers at full width as 2 gpipe stages of 15 in bf16, one gloo rank a
+   stage sharing the card, 8 microbatches of 1 x 1,024 tokens; each rank
+   under a ``ProfileSession`` (its stage worker tracing ``stage_step`` and
+   ``bubble_compute``, folding with the card's fused kernels) streaming
+   to an ``IngestServer`` in this process, whose fused session reports
+   over the ``FleetSource``.  Held: the output bit for bit against the 30
+   layers applied in order, a worker per stage, every kernel call of this
+   process and of each rank (the ranks send theirs back).  Printed: ms for the run, each stage's
+   busy time, the shift's route and ms, the CMetric share of
+   ``bubble_compute`` beside the analytic 1/9.  (d) ``python -m
+   repro_torch.launch.train``'s ``main`` on tiny deepseek-7b for 4 steps
+   on the card.
+
+Each path of phases 3-10 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -125,7 +153,8 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-9), and ``{"ok": true,
+``launches`` summed over the paths of phases 3-10, ``phase10_launches``
+over phase 10's), and ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
@@ -752,6 +781,19 @@ def _clone(x):
     return x
 
 
+def _moved(x, dev):
+    """``x`` (tensors in dicts, tuples and lists) with every tensor on
+    ``dev``: a rank's recorded calls travel to the parent on the host."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _moved(v, dev) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_moved(v, dev) for v in x)
+    return x
+
+
 @contextlib.contextmanager
 def recording():
     """Keep every call a path makes to a kernel wrapper with tensors on the
@@ -969,8 +1011,15 @@ def main(argv=None) -> int:
     runs["train"] = train_path(ops, dev, smi)
     runs["recurrent"] = recurrent_path(ops, dev, smi,
                                        host_profile=args.profile)
+    t = time.perf_counter()
+    multirank_tiny_and_flash(dev, smi)
+    phase10 = {"multirank pipeline": pipeline_path(ops, dev, smi),
+               "launch.train": launch_train_path(ops)}
+    runs.update(phase10)
+    print(f"[multirank] phase 10 {time.perf_counter() - t:.1f} s")
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
+        row["phase10_launches"] = sum(r[key] for r in phase10.values())
     if args.profile:
         for label, chunk in (("whole-log", None), ("chunked", 1 << 20)):
             profile_main_path(label, lambda chunk=chunk: detect_offline(
@@ -2328,6 +2377,582 @@ def recurrent_path(ops, dev, card: str, host_profile: bool = False) -> dict:
     del kept
     return serve_flow(ops, dev, cfg, masters, tokens, full32, t_phase,
                       "recurrent", 9, host_profile, bf16_hold=False)
+
+
+# -- phase 10: the multi-rank layer ------------------------------------------
+
+#: the reference test's flash-decode shapes (tests/test_flash_decode.py)
+MR_B, MR_L, MR_H, MR_KV, MR_HD, MR_LENGTHS = 3, 64, 8, 2, 16, (10, 40, 63)
+#: deepseek-7b's decode attention over the decode_32k cache
+FD_B, FD_L, FD_H, FD_KV, FD_HD = 8, 32768, 32, 32, 128
+#: valid lengths of the full-width rows: whole, partial, one shard, and a
+#: row whose later shards are fully masked at 2 and 4 ranks
+FD_LENGTHS = (32767, 30000, 20000, 16383, 9000, 8191, 5000, 100)
+FD_BLOCK = 1024                 # cache positions drawn per generator seed
+FD_CALLS = 10                   # timed calls, after two warm-up calls
+PP_STAGES, PP_MICRO, PP_TOKENS = 2, 8, 1024
+
+
+def mr_tiny_inputs() -> dict:
+    """Phase 10 (a)'s inputs, numpy from the seed: flash-decode's q, k, v
+    and valid at the reference test's shapes, and the reference's gpipe
+    test (4 tanh layers 16 wide, 6 microbatches of 8)."""
+    rng = np.random.default_rng(SEED + 10)
+    f32 = np.float32
+    return {
+        "q": rng.standard_normal((MR_B, 1, MR_H, MR_HD)).astype(f32),
+        "k": rng.standard_normal((MR_B, MR_L, MR_KV, MR_HD)).astype(f32),
+        "v": rng.standard_normal((MR_B, MR_L, MR_KV, MR_HD)).astype(f32),
+        "valid": np.arange(MR_L)[None, :] <= np.asarray(MR_LENGTHS)[:, None],
+        "w": (rng.standard_normal((4, 16, 16)) * 0.5).astype(f32),
+        "x": rng.standard_normal((6, 8, 16)).astype(f32)}
+
+
+def _tanh_stage(p, a):
+    import torch
+    return torch.tanh(a @ p["w"])
+
+
+def mr_tiny(inputs: dict, dev: str) -> dict:
+    """flash_decode over the world as the ``model`` axis (each rank builds
+    its own slice of k, v and valid) and gpipe over it as the ``stage``
+    axis (as many stages as ranks, the first of the 4 layers; each rank
+    holds its own), with every tensor on ``dev``; numpy outputs."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.pipeline import gpipe
+    from repro_torch.serve.decode_sharded import make_flash_decode
+    w, r = dist.get_world_size(), dist.get_rank()
+    x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    mesh = make_mesh((w,), ("model",), device=dev)
+    n = MR_L // w
+
+    def local(t):
+        return DTensor.from_local(t[:, r * n:(r + 1) * n].contiguous(), mesh,
+                                  [Shard(1)], run_check=False)
+    f = make_flash_decode(mesh, ModelConfig(num_heads=MR_H,
+                                            num_kv_heads=MR_KV,
+                                            head_dim=MR_HD))
+    fd = f(x["q"], local(x["k"]), local(x["v"]), local(x["valid"]))
+    smesh = make_mesh((w,), ("stage",), device=dev)
+    stacked = {"w": DTensor.from_local(x["w"][r:r + 1].contiguous(), smesh,
+                                       [Shard(0)], run_check=False)}
+    gp = gpipe(_tanh_stage, smesh, n_stages=w, n_micro=6)(stacked, x["x"])
+    return {"flash_decode": fd.to_local().cpu().numpy(),
+            "gpipe": gp.to_local().cpu().numpy()}
+
+
+def mr_sharded_step(dev: str) -> list:
+    """Two train steps of tiny deepseek-7b in float32 on a (1, 1) mesh of
+    this one-rank world: parameters ``distribute_tensor``'d by
+    ``param_shardings``, the batch ``Shard(0)`` over ``data``, under
+    ``use_mesh`` with the train rules; the two losses."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import api as shapi
+    from repro_torch.sharding import params as shparams
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(configs.get_tiny("deepseek-7b"),
+                              compute_dtype=torch.float32)
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    rules = rules_for("deepseek-7b", "train")
+    # drawn on the CPU, then placed on the mesh's device
+    params = shparams.distribute_params(
+        init_lm(torch.Generator().manual_seed(SEED), cfg, device="cpu"),
+        mesh, rules)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (8, 16)).astype(np.int32)).to(dev)
+    batch = {"tokens": DTensor.from_local(tokens, mesh, [Replicate()] * 2,
+                                          run_check=False)
+             .redistribute(mesh, [Shard(0), Replicate()])}
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    opt = adamw.init(params)
+    losses, err = [], None
+    with shapi.use_mesh(mesh, rules):
+        for _ in range(2):
+            params, opt, metrics, err = step(params, opt, batch, err)
+            losses.append(float(metrics["loss"].full_tensor()))
+    return losses
+
+
+def fd_cache(lo: int, hi: int, dev):
+    """Positions [lo, hi) of the full-width float32 cache (k, v), drawn
+    in blocks of ``FD_BLOCK`` positions, each from its own seed, so that a
+    rank's slice equals that part of the whole."""
+    import torch
+    ks, vs = [], []
+    for j in range(lo // FD_BLOCK, hi // FD_BLOCK):
+        g = torch.Generator(dev).manual_seed(SEED * 7919 + j)
+        shape = (FD_B, FD_BLOCK, FD_KV, FD_HD)
+        ks.append(torch.randn(shape, generator=g, device=dev))
+        vs.append(torch.randn(shape, generator=g, device=dev))
+    return torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+
+
+def fd_query(dev):
+    """The full-width float32 query and the (B, L) validity mask."""
+    import torch
+    g = torch.Generator(dev).manual_seed(SEED * 7919 - 1)
+    q = torch.randn((FD_B, 1, FD_H, FD_HD), generator=g, device=dev)
+    valid = torch.arange(FD_L, device=dev)[None, :] <= torch.tensor(
+        FD_LENGTHS, device=dev)[:, None]
+    return q, valid
+
+
+def fd_dense(dev) -> np.ndarray:
+    """Dense single-rank float32 attention of :func:`fd_query`'s query
+    over the whole :func:`fd_cache` (8.59 GB)."""
+    import torch
+    q, valid = fd_query(dev)
+    k, v = fd_cache(0, FD_L, dev)
+    qg = q.reshape(FD_B, FD_KV, FD_H // FD_KV, FD_HD) * FD_HD ** -0.5
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k)
+    s = torch.where(valid[:, None, None, :], s, -torch.inf)
+    out = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1), v)
+    return out.reshape(FD_B, 1, FD_H, FD_HD).cpu().numpy()
+
+
+class _TimedAllReduce:
+    """Stands in for ``torch.distributed`` in ``decode_sharded``: each
+    all-reduce is timed on the host between two synchronisations."""
+
+    def __init__(self, dist):
+        self.dist, self.ReduceOp, self.seconds = dist, dist.ReduceOp, 0.0
+
+    def all_reduce(self, t, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.dist.all_reduce(t, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+
+def mr_full() -> dict:
+    """Phase 10 (b) on this rank: flash-decode at deepseek-7b's decode
+    width over this rank's L/W slice of the 32,768-slot cache, in float32
+    (the output, for the dense check) and in bf16 (timed: a call, then the
+    same calls with each all-reduce timed alone)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.serve import decode_sharded
+    w, r = dist.get_world_size(), dist.get_rank()
+    torch.cuda.reset_peak_memory_stats()
+    n = FD_L // w
+    q, valid = fd_query("cuda")
+    k, v = fd_cache(r * n, (r + 1) * n, "cuda")
+    mesh = make_mesh((w,), ("model",), device="cuda")
+    f = decode_sharded.make_flash_decode(mesh, ModelConfig(
+        num_heads=FD_H, num_kv_heads=FD_KV, head_dim=FD_HD))
+
+    def local(t):
+        return DTensor.from_local(t, mesh, [Shard(1)], run_check=False)
+    dvalid = local(valid[:, r * n:(r + 1) * n].contiguous())
+    out32 = f(q, local(k), local(v), dvalid).to_local().cpu().numpy()
+    kb, vb, qb = local(k.bfloat16()), local(v.bfloat16()), q.bfloat16()
+    del k, v
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(FD_CALLS):
+            f(qb, kb, vb, dvalid)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / FD_CALLS * 1e3
+    for _ in range(2):
+        f(qb, kb, vb, dvalid)
+    ms = timed()
+    shim = _TimedAllReduce(dist)
+    decode_sharded.dist = shim
+    try:
+        split_ms = timed()
+    finally:
+        decode_sharded.dist = dist
+    allreduce_ms = shim.seconds / FD_CALLS * 1e3
+    return {"out32": out32, "ms": ms, "split_ms": split_ms,
+            "allreduce_ms": allreduce_ms,
+            "local_ms": split_ms - allreduce_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def rank_multirank(inputs: dict, full: bool) -> dict:
+    """One rank of a phase-10 world: (a) on the card, and on the CPU too
+    where the backend carries CPU tensors (gloo), the tiny sharded step
+    on the card in the one-rank NCCL world; (b) when ``full``."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    backend = dist.get_backend()
+    out = {"backend": backend, "card": mr_tiny(inputs, "cuda")}
+    if backend == "gloo":
+        out["cpu"] = mr_tiny(inputs, "cpu")
+    if backend == "nccl":
+        out["step"] = mr_sharded_step("cuda")
+    if full:
+        out["full"] = mr_full()
+    return out
+
+
+def rank_cpu_reference(inputs: dict) -> dict:
+    """The one-rank gloo world on the CPU: (a)'s calls, which the one-rank
+    NCCL world on the card is held against."""
+    import torch
+    torch.set_num_threads(4)
+    return {"cpu": mr_tiny(inputs, "cpu"), "step": mr_sharded_step("cpu")}
+
+
+def multirank_tiny_and_flash(dev, card: str) -> None:
+    """Phase 10 (a) and (b): worlds of 1 (NCCL), 2 and 4 (gloo, the ranks
+    sharing the card) ranks; each rank's card results held against the
+    same calls on the CPU, and the full-width float32 flash-decode against
+    the dense attention over the whole cache, at rtol/atol 1e-4."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    inputs = mr_tiny_inputs()
+    dense = fd_dense(dev)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cpu1 = run_ranks(rank_cpu_reference, 1, backend="gloo", args=(inputs,),
+                     timeout=300)[0]
+    print(f"[multirank] CPU reference world (1 rank, gloo): "
+          f"{time.perf_counter() - t:.1f} s")
+    kv_bytes = 2 * FD_B * FD_L * FD_KV * FD_HD * 2
+    bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    for w, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
+        t = time.perf_counter()
+        ranks = run_ranks(rank_multirank, w, backend=backend,
+                          args=(inputs, True), timeout=600)
+        secs = time.perf_counter() - t
+        for i, res in enumerate(ranks):
+            check(res["backend"] == backend, f"world {w}: rank {i} on "
+                  f"{res['backend']}, not {backend}")
+            ref = cpu1["cpu"] if backend == "nccl" else res["cpu"]
+            for what in ("flash_decode", "gpipe"):
+                diff = float(np.max(np.abs(res["card"][what] - ref[what])))
+                check(np.allclose(res["card"][what], ref[what], rtol=1e-4,
+                                  atol=1e-4), f"world {w} rank {i}: {what} "
+                      f"on the card off the CPU's by {diff:.3e}")
+                if i == 0:
+                    print(f"[multirank] (a) world {w} ({backend}): {what} "
+                          f"card against CPU max |diff| {diff:.3e} "
+                          f"(rtol/atol 1e-4)")
+            full = res["full"]
+            diff = float(np.max(np.abs(full["out32"] - dense)))
+            check(np.allclose(full["out32"], dense, rtol=1e-4, atol=1e-4),
+                  f"world {w} rank {i}: full-width flash-decode off the "
+                  f"dense attention by {diff:.3e}")
+            check(np.array_equal(full["out32"], ranks[0]["full"]["out32"]),
+                  f"world {w}: rank {i}'s output differs from rank 0's")
+        if backend == "nccl":
+            step, ref = ranks[0]["step"], cpu1["step"]
+            check(np.allclose(step, ref, rtol=1e-4, atol=1e-4)
+                  and step[1] < step[0], f"sharded step on the card "
+                  f"{step}, on the CPU {ref}")
+            print(f"[multirank] (a) tiny deepseek-7b sharded train step on "
+                  f"a (1, 1) NCCL mesh, float32: losses {step} on the card, "
+                  f"{ref} on the CPU (rtol/atol 1e-4)")
+        fulls = [r["full"] for r in ranks]
+        print(f"[multirank] (b) flash-decode B={FD_B} H={FD_H} KV={FD_KV} "
+              f"hd={FD_HD} L={FD_L}, world {w} ({backend}, "
+              f"{FD_L // w} slots a rank): float32 against the dense "
+              f"attention max |diff| {diff:.3e} (rtol/atol 1e-4); bf16 "
+              f"{max(x['ms'] for x in fulls):.4f} ms a call (slowest "
+              f"rank), local attention "
+              f"{max(x['local_ms'] for x in fulls):.4f} ms, the three "
+              f"all-reduces {max(x['allreduce_ms'] for x in fulls):.4f} ms;"
+              f" the cache's byte bound {kv_bytes / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound:.4f} ms "
+              f"({100 * bound / max(x['ms'] for x in fulls):.1f}% of "
+              f"bound); peak device memory a rank "
+              f"{max(x['peak_gb'] for x in fulls):.2f} GB; world "
+              f"{secs:.1f} s")
+    print(f"[multirank] (a)+(b) {time.perf_counter() - t_phase:.1f} s; "
+          f"card {card}")
+
+
+def pp_cfg():
+    """deepseek-7b at its published width, bf16 parameters and compute."""
+    import torch
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("deepseek-7b"),
+                               compute_dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
+
+
+def pp_layer(cfg, layer: int, dev):
+    """Layer ``layer``'s parameters, drawn on ``dev`` from its own seed."""
+    import torch
+    from repro_torch.models import blocks
+    return blocks.init_block(torch.Generator(dev).manual_seed(
+        SEED * 31 + layer), cfg, "dense", device=dev)
+
+
+def pp_input(cfg, dev):
+    import torch
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    return torch.randn((PP_MICRO, 1, PP_TOKENS, cfg.d_model), generator=g,
+                       device=dev).to(torch.bfloat16)
+
+
+def pp_apply(layers, a, cfg):
+    """``layers`` (block parameter dicts) applied to ``a`` in order."""
+    import torch
+    from repro_torch.models import blocks
+    positions = torch.arange(a.shape[1], device=a.device)[None].expand(
+        a.shape[0], a.shape[1])
+    for p in layers:
+        a, _ = blocks.apply_block(p, a, positions, cfg, "dense")
+    return a
+
+
+def rank_pipeline(addr) -> dict:
+    """Phase 10 (c) on this rank: stage ``rank`` of deepseek-7b's 30
+    layers through ``gpipe`` on the card, once to warm up, then under a
+    ``ProfileSession`` whose stage worker traces active steps as
+    ``stage_step`` and masked ones as ``bubble_compute`` and streams to
+    the parent's ``IngestServer``.  The session folds on the card with the
+    default fused backend, as ``examples/fleet_profile.py``'s remote
+    sessions do; its kernel calls are counted from 0 and recorded, and
+    go back to the parent (on the host) to be held there."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.core import ProfileSession
+    from repro_torch.fleet import attach_remote
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_map
+    # the module (the package's ``gpipe`` is the function)
+    gpipe_mod = importlib.import_module("repro_torch.pipeline.gpipe")
+    r = dist.get_rank()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = pp_cfg()
+    per = cfg.num_layers // PP_STAGES
+    mesh = make_mesh((PP_STAGES,), ("stage",), device="cuda")
+    layers = [pp_layer(cfg, layer, "cuda")
+              for layer in range(r * per, (r + 1) * per)]
+    # each leaf gains the stacked stage dimension, of which this rank
+    # holds its own row
+    stacked = tree_map(lambda t: DTensor.from_local(
+        t.unsqueeze(0), mesh, [Shard(0)], run_check=False), layers)
+    x = pp_input(cfg, "cuda")
+    warm = gpipe_mod.gpipe(lambda p, a: pp_apply(p, a, cfg), mesh,
+                           PP_STAGES, PP_MICRO)(stacked, x).to_local()
+
+    steps, busy, shifts = [], [0.0], [0.0, 0]
+    real_shift = gpipe_mod._shift
+
+    def stage_fn(p, a):
+        t = len(steps)
+        tag = "stage_step" if 0 <= t - r < PP_MICRO else "bubble_compute"
+        steps.append(tag)
+        t0 = time.perf_counter()
+        sess.begin(wid, tag)
+        out = pp_apply(p, a, cfg)
+        torch.cuda.synchronize()
+        sess.end(wid)
+        busy[0] += time.perf_counter() - t0
+        return out
+
+    def shift(*a):
+        t0 = time.perf_counter()
+        out = real_shift(*a)
+        torch.cuda.synchronize()
+        shifts[0] += time.perf_counter() - t0
+        shifts[1] += 1
+        return out
+
+    fn = gpipe_mod.gpipe(stage_fn, mesh, PP_STAGES, PP_MICRO)
+    ops.reset_launch_counts()
+    with recording() as calls:
+        # the fleet's n_min: a session interns a slice's call path only
+        # where it finds the slice critical itself
+        sess = ProfileSession(n_min=PP_STAGES + 1.0, dt=0.002,
+                              device="cuda")
+        wid = sess.register_worker(f"stage{r}", "stage")
+        sink = attach_remote(sess, addr, host_id=f"rank{r}",
+                             clock_offset_ns=0)
+        gpipe_mod._shift = shift
+        try:
+            with sess.running():
+                dist.barrier()
+                t0 = time.perf_counter()
+                y = fn(stacked, x).to_local()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            gpipe_mod._shift = real_shift
+        sess.result()
+        sink.close()
+    return {"y": y.cpu() if r == 0 else None,
+            "calls": _moved(calls, "cpu"), "launches": ops.launch_counts(),
+            "session": (sess.device.type, sess.fold_backend),
+            "warm_equal": bool(torch.equal(y, warm)), "wall_ms": wall * 1e3,
+            "busy_ms": busy[0] * 1e3, "shift_ms": shifts[0] * 1e3,
+            "shifts": shifts[1], "steps": steps,
+            "route": gpipe_mod.shift_route(mesh.get_group("stage"),
+                                           y.device),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def pipeline_path(ops, dev, card: str) -> dict:
+    """Phase 10 (c): the full-width 2-stage pipeline, one gloo rank a
+    stage sharing the card, under a fused GAPP fleet session in this
+    process over an ``IngestServer`` the ranks' sessions stream to; then a
+    fused session over the ingest's journal with samples every 1 ms for
+    the report's (path, tag) tables.  Held: the output against the 30
+    layers applied in order to each microbatch on the card (bit for bit),
+    a worker per stage, every kernel call against its plain version, this
+    process's and each rank's.  Returns the run's kernel launches, the
+    ranks' included."""
+    import torch
+    from repro_torch.core import ProfileSession
+    from repro_torch.fleet import FleetSource, IngestServer
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    # more workers than stages may be critical: every slice is, so the
+    # paths' CMetric splits the whole run by tag
+    n_min = PP_STAGES + 1.0
+    with recording() as calls, \
+            tempfile.TemporaryDirectory(prefix="gapp-smoke-pp-") as d:
+        fleet_dir = os.path.join(d, "fleet")
+        server = IngestServer(device=dev, fleet_dir=fleet_dir)
+        server.start()
+        try:
+            fleet = ProfileSession(server.source, n_min=n_min)
+            fleet.start()
+            ranks = run_ranks(rank_pipeline, PP_STAGES, backend="gloo",
+                              args=(server.address,), timeout=600)
+            check(server.wait_idle(60), f"ingest not idle: "
+                  f"{server.stats()}")
+            live = fleet.result()
+        finally:
+            server.close()
+        # the fleet's stream again from its journal, sampled every 1 ms
+        # (remote sessions ship no samples): the report's (path, tag)
+        # tables
+        rep = ProfileSession(FleetSource.from_fleet_dir(fleet_dir, device=dev),
+                             n_min=n_min, sample_dt_ns=1_000_000).result()
+    launches = ops.launch_counts()
+    hold_recorded("multirank pipeline", calls, launches)
+    check(fleet.device.type == "cuda" and fleet.fold_backend == "fused",
+          f"pipeline fleet session on {fleet.device} / "
+          f"{fleet.fold_backend}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"pipeline launched {launches}")
+    for i, res in enumerate(ranks):
+        check(res["session"] == ("cuda", "fused"), f"stage {i}'s session "
+              f"on {res['session']}")
+        hold_recorded(f"multirank pipeline rank {i}",
+                      _moved(res["calls"], dev), res["launches"])
+        check(res["launches"]["carry_cumsum"] >= 1, f"stage {i}'s session "
+              f"launched {res['launches']}")
+    rank_launches = [r["launches"] for r in ranks]
+    launches = {k: v + sum(r[k] for r in rank_launches)
+                for k, v in launches.items()}
+    names = sorted(rep.worker_names)
+    for r in (live, rep):
+        check(sorted(r.worker_names) == ["rank0/stage0", "rank1/stage1"]
+              and sorted(r.hosts) == ["rank0", "rank1"]
+              and r.total_slices == live.total_slices,
+              f"pipeline report: workers {r.worker_names}, hosts "
+              f"{r.hosts}, {r.total_slices} slices")
+    cm = {}
+    for p in rep.paths:
+        cm[rep.path_str(p)] = cm.get(rep.path_str(p), 0.0) + p.cmetric
+    bubble = cm.get("bubble_compute", 0.0) / max(
+        cm.get("bubble_compute", 0.0) + cm.get("stage_step", 0.0), 1e-30)
+    for i, res in enumerate(ranks):
+        check(res["warm_equal"], f"stage {i}: the profiled run differs "
+              f"from the warm-up")
+        want = ["bubble_compute"] * i + ["stage_step"] * PP_MICRO + \
+            ["bubble_compute"] * (PP_STAGES - 1 - i)
+        check(res["steps"] == want, f"stage {i} traced {res['steps']}")
+
+    # the 30 layers in order on each microbatch, in this process
+    cfg = pp_cfg()
+    layers = [pp_layer(cfg, layer, dev) for layer in range(cfg.num_layers)]
+    x = pp_input(cfg, dev)
+    y = ranks[0]["y"].to(dev)
+    with torch.no_grad():
+        seq = torch.stack([pp_apply(layers, x[m], cfg)
+                           for m in range(PP_MICRO)])
+    diff = float((seq.float() - y.float()).abs().max())
+    check(torch.equal(seq, y), f"pipeline output off the sequential "
+          f"layers by {diff:.3e}")
+    del layers, x, y, seq
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    busy = ", ".join(f"{r['busy_ms']:.1f}" for r in ranks)
+    shift = ", ".join(f"{r['shift_ms']:.1f}" for r in ranks)
+    print(f"[multirank] (c) deepseek-7b 30 layers as {PP_STAGES} stages of "
+          f"{cfg.num_layers // PP_STAGES}, bf16, {PP_MICRO} microbatches "
+          f"of 1 x {PP_TOKENS} tokens, one gloo rank a stage sharing the "
+          f"card: {max(r['wall_ms'] for r in ranks):.1f} ms for the run; "
+          f"stage busy {busy} ms; shift route {r0['route']}, {shift} ms "
+          f"over "
+          f"{r0['shifts']} shifts a stage; output bit-equal to the "
+          f"sequential layers; peak device memory a rank "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB")
+    print(f"[multirank] (c) GAPP fleet report: workers {names}, hosts "
+          f"{rep.hosts}, {rep.total_slices} slices; CMetric by tag "
+          f"{ {k: round(v, 6) for k, v in cm.items()} } s; bubble_compute "
+          f"share of the CMetric {bubble:.4f} against the analytic "
+          f"(n_stages-1)/(n_micro+n_stages-1) = "
+          f"{(PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1):.4f}; launches "
+          f"{launches} (the ranks' sessions {rank_launches}); "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
+def launch_train_path(ops) -> dict:
+    """Phase 10 (d): ``python -m repro_torch.launch.train``'s ``main`` on
+    tiny deepseek-7b for 4 steps on the card (its checkpoints in a
+    temporary directory); the GAPP profile printed, every kernel call
+    held.  Returns the run's kernel launches."""
+    import io
+    from repro_torch.launch import train as launch_train
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = io.StringIO()
+    with recording() as calls, \
+            tempfile.TemporaryDirectory(prefix="gapp-smoke-launch-") as d:
+        saved, tempfile.tempdir = tempfile.tempdir, d
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = launch_train.main(["--arch", "deepseek-7b", "--steps",
+                                        "4"])
+        finally:
+            tempfile.tempdir = saved
+    launches = ops.launch_counts()
+    hold_recorded("launch.train", calls, launches)
+    text = out.getvalue()
+    check(rc == 0 and "GAPP bottleneck profile" in text
+          and "train/step" in text, f"launch.train: rc {rc}, {text[-500:]}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"launch.train launched {launches}")
+    top = [ln for ln in text.splitlines() if ln.startswith("#1")]
+    print(f"[multirank] (d) launch.train --arch deepseek-7b --steps 4 on "
+          f"the card: {time.perf_counter() - t:.1f} s, profile top "
+          f"{top[0].strip() if top else '?'}, launches {launches}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -17,7 +17,6 @@ cache in place (see its docstring).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
@@ -94,6 +93,12 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
+    # aten._unsafe_view: DTensor (torch 2.11) cannot flatten the score
+    # einsums' batch and head dimensions when both carry a shard, so on a
+    # mesh the heads are gathered first (a no-op elsewhere)
+    q = constrain(q, "batch", "seq", None, "head_dim")
+    k = constrain(k, "batch", "seq", None, "head_dim")
+    v = constrain(v, "batch", "seq", None, "head_dim")
     if cfg.opt_level >= 1:
         if g > 1:
             k = torch.repeat_interleave(k, g, dim=2)
@@ -197,12 +202,14 @@ def attention_chunked_local(p, x, positions, cfg: ModelConfig, *,
     qc = q.reshape(b, nc, w, cfg.num_heads, cfg.hd)
     kc = k.reshape(b, nc, w, cfg.num_kv_heads, cfg.hd)
     vc = v.reshape(b, nc, w, cfg.num_kv_heads, cfg.hd)
-    # pad one chunk in front of dim 1 (F.pad lists dims from the last)
-    k2 = torch.cat([F.pad(kc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), kc], dim=2)
-    v2 = torch.cat([F.pad(vc[:, :-1], (0, 0, 0, 0, 0, 0, 1, 0)), vc], dim=2)
+    # one chunk in front of dim 1, as a cat (aten.constant_pad_nd: torch
+    # 2.11's DTensor rule gives its output one placement on a 2-D mesh)
+    def prev(t, fill):
+        return torch.cat([torch.full_like(t[:, :1], fill), t[:, :-1]], dim=1)
+    k2 = torch.cat([prev(kc, 0), kc], dim=2)
+    v2 = torch.cat([prev(vc, 0), vc], dim=2)
     pc = positions.reshape(b, nc, w)
-    p2 = torch.cat([F.pad(pc[:, :-1], (0, 0, 1, 0), value=-10**9), pc],
-                   dim=2)
+    p2 = torch.cat([prev(pc, -10**9), pc], dim=2)
     mask = _band_mask(pc, p2, w, causal=True)[:, :, None, None]  # B,nc,1,1,w,2w
     bn = b * nc
     out = _sdpa(qc.reshape(bn, w, cfg.num_heads, cfg.hd),

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.sharding.api import constrain
+from repro_torch.sharding.api import constrain, replicated
 
 
 def init_moe(gen, cfg: ModelConfig, *, device=None) -> dict:
@@ -51,6 +51,44 @@ def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     return max(4, -(-c // 4) * 4)            # round up to a multiple of 4
 
 
+def _dispatch(x, top_e, keep, pos, e: int, cap: int, cdt):
+    """(B,S,k) scatter-add of the kept choices -> (B,E,C,D)."""
+    b, s, k = top_e.shape
+    d = x.shape[-1]
+    idx_b = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    idx_e = top_e.reshape(b, s * k)
+    idx_c = torch.where(keep, pos, cap).reshape(b, s * k).clamp(max=cap - 1)
+    src = x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d).to(cdt)
+    src = src * keep.reshape(b, s * k, 1)
+    expert_in = torch.zeros((b, e, cap, d), dtype=cdt, device=x.device)
+    expert_in.index_put_((idx_b, idx_e, idx_c.long()), src, accumulate=True)
+    return expert_in
+
+
+def _experts(expert_in, wg, wu, wd):
+    """The experts' SwiGLU: (B,E,C,D) -> (B,E,C,D)."""
+    h = F.silu(torch.einsum("becd,edf->becf", expert_in, wg)) \
+        * torch.einsum("becd,edf->becf", expert_in, wu)
+    # as in the reference; on a mesh this runs unbound (replicated), and
+    # the constraint passes h through
+    h = constrain(h, "batch", "experts_act", None, "expert_mlp")
+    return torch.einsum("becf,efd->becd", h, wd)
+
+
+def _combine(expert_out, top_e, keep, pos, top_p, cdt):
+    """(B,E,C,D) -> (B,S,D): each kept choice's expert output gathered
+    back, weighted by its router probability."""
+    b, s, k = top_e.shape
+    d = expert_out.shape[-1]
+    idx_b = torch.arange(b, device=expert_out.device)[:, None].expand(
+        b, s * k)
+    idx_e = top_e.reshape(b, s * k)
+    gather_c = torch.where(keep, pos, 0).reshape(b, s * k).long()
+    src = expert_out[idx_b, idx_e, gather_c]               # (B,S*k,D)
+    wgt = (keep.reshape(b, s * k, 1) * top_p.reshape(b, s * k, 1)).to(cdt)
+    return torch.sum((src * wgt).reshape(b, s, k, d), dim=2)
+
+
 def moe_ffn(p, x, cfg: ModelConfig):
     """x: (B, S, D) -> (B, S, D), aux metrics dict.
 
@@ -59,7 +97,7 @@ def moe_ffn(p, x, cfg: ModelConfig):
     ``expert_load`` (int32[E], choices per expert) and ``dropped`` (the
     number of choices beyond capacity), each a tensor.
     """
-    b, s, d = x.shape
+    b, s, _ = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cdt = cfg.compute_dtype
     cap = _capacity(cfg, s)
@@ -79,31 +117,25 @@ def moe_ffn(p, x, cfg: ModelConfig):
     keep = pos < cap                                       # (B,S,k)
     dropped = torch.sum(~keep)
 
-    # dispatch: (B,S,k) scatter-add -> (B,E,C,D)
-    idx_b = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    idx_e = top_e.reshape(b, s * k)
-    idx_c = torch.where(keep, pos, cap).reshape(b, s * k).clamp(max=cap - 1)
-    src = x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d).to(cdt)
-    src = src * keep.reshape(b, s * k, 1)
-    expert_in = torch.zeros((b, e, cap, d), dtype=cdt, device=x.device)
-    expert_in.index_put_((idx_b, idx_e, idx_c.long()), src, accumulate=True)
+    # dispatch: aten.index_put_ has no DTensor rule, so on a mesh it runs
+    # on each rank's batch rows, whole in every other dimension
+    expert_in = replicated(_dispatch, batched=(0, 1, 2, 3))(
+        x, top_e, keep, pos, e, cap, cdt)
     expert_in = constrain(expert_in, "batch", "experts_act", None, "embed")
 
-    # expert FFN (SwiGLU)
-    wg = p["we_gate"].to(cdt)
-    wu = p["we_up"].to(cdt)
-    wd = p["we_down"].to(cdt)
-    h = F.silu(torch.einsum("becd,edf->becf", expert_in, wg)) \
-        * torch.einsum("becd,edf->becf", expert_in, wu)
-    h = constrain(h, "batch", "experts_act", None, "expert_mlp")
-    expert_out = torch.einsum("becf,efd->becd", h, wd)
+    # expert FFN (SwiGLU): aten.view in the expert einsums' backward fails
+    # on DTensor's sharding of their grads, so on a mesh they run on each
+    # rank's batch rows with every expert's weights whole
+    expert_out = replicated(_experts, batched=(0,))(
+        expert_in, p["we_gate"].to(cdt), p["we_up"].to(cdt),
+        p["we_down"].to(cdt))
     expert_out = constrain(expert_out, "batch", "experts_act", None, "embed")
 
-    # combine: gather back with router weights
-    gather_c = torch.where(keep, pos, 0).reshape(b, s * k).long()
-    src = expert_out[idx_b, idx_e, gather_c]               # (B,S*k,D)
-    wgt = (keep.reshape(b, s * k, 1) * top_p.reshape(b, s * k, 1)).to(cdt)
-    y = torch.sum((src * wgt).reshape(b, s, k, d), dim=2)
+    # combine: aten.index_put in the gather's backward (torch 2.11's
+    # DTensor rule fails on the batch-sharded values), so on a mesh it too
+    # runs on each rank's batch rows
+    y = replicated(_combine, batched=(0, 1, 2, 3, 4))(
+        expert_out, top_e, keep, pos, top_p, cdt)
     y = constrain(y, "batch", "seq", "embed")
 
     if cfg.dense_residual:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
-from repro_torch.sharding.api import constrain
+from repro_torch.sharding.api import constrain, replicated
 
 
 def associative_scan(combine, elems: tuple, dim: int = 1) -> tuple:
@@ -78,7 +78,10 @@ def _causal_conv(x, w, b):
     width = w.shape[0]
     out = torch.zeros_like(x)
     for i in range(width):
-        shifted = F.pad(x, (0, 0, width - 1 - i, 0))[:, : x.shape[1]]
+        # aten.constant_pad_nd: torch 2.11's DTensor rule gives its output
+        # one placement on a 2-D mesh, so the zeros in front are a cat
+        shifted = torch.cat([torch.zeros_like(x[:, :width - 1 - i]), x],
+                            dim=1)[:, : x.shape[1]]
         out = out + shifted * w[i]
     return out + b
 
@@ -218,15 +221,37 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
     if s % c:
         raise ValueError(f"rwkv_tmix: sequence {s} is not a multiple of "
                          f"the chunk {c}")
+    nh = d // cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    prev = state["prev"] if state is not None else x.new_zeros((b, 1, d))
+    r, k, v, g, logw = _rwkv_project(p, x, prev, cfg)
+    # aten._unsafe_view: torch 2.11's DTensor cannot flatten the chunk
+    # einsums' batch and head dimensions when both carry a shard, so on a
+    # mesh each rank runs them on its batch rows with every head
+    o, s_final = replicated(_rwkv_chunks, batched=(0, 1, 2, 3, 4))(
+        r, k, v, logw, None if state is None else state["s"],
+        p["bonus_u"], cfg)
+    # group norm per head + gate
+    o = rms_norm(o, p["ln_x"].reshape(nh, hd)).reshape(b, s, d)
+    cdt = cfg.compute_dtype
+    out = (o.to(cdt) * F.silu(g)) @ p["wo"].to(cdt)
+    out = constrain(out, "batch", "seq", "embed")
+    return out, {"s": s_final, "prev": x[:, -1:]}
+
+
+def _rwkv_chunks(r, k, v, logw, s0, bonus_u, cfg: ModelConfig):
+    """:func:`rwkv_tmix`'s chunked products: the projections (B,S,D) and
+    the state at the start (zeros when None) -> the heads' outputs
+    (B,S,NH,hd) and the state at the end."""
+    b, s, d = r.shape
+    c = min(cfg.chunk_size, s)
     nc = s // c
     nh = d // cfg.rwkv_head_dim
     hd = cfg.rwkv_head_dim
     f32 = torch.float32
-    prev = state["prev"] if state is not None else x.new_zeros((b, 1, d))
-    s0 = state["s"] if state is not None else torch.zeros(
-        (b, nh, hd, hd), dtype=f32, device=x.device)
+    if s0 is None:
+        s0 = torch.zeros((b, nh, hd, hd), dtype=f32, device=r.device)
 
-    r, k, v, g, logw = _rwkv_project(p, x, prev, cfg)
     rh = _heads(r, nh, hd).float().reshape(b, nc, c, nh, hd)
     kh = _heads(k, nh, hd).float().reshape(b, nc, c, nh, hd)
     vh = _heads(v, nh, hd).float().reshape(b, nc, c, nh, hd)
@@ -250,7 +275,7 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
     rs, ks_ = rh.reshape(shp), kh.reshape(shp)
     lps, lss = lprev.reshape(shp), lsum.reshape(shp)
     mbound = lss[:, :, :, -1]                       # (B,nc,nsc,NH,hd)
-    tri_m = torch.tril(torch.ones((m, m), dtype=torch.bool, device=x.device),
+    tri_m = torch.tril(torch.ones((m, m), dtype=torch.bool, device=r.device),
                        diagonal=-1)[None, None, :, :, None, None]
     zero = lw.new_tensor(0.0)
     blocks = []
@@ -259,7 +284,7 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
         for si in range(nsc):
             if si > ti:
                 row.append(torch.zeros((b, nc, nh, m, m), dtype=f32,
-                                       device=x.device))
+                                       device=r.device))
             elif si == ti:
                 diff = lps[:, :, ti, :, None] - lss[:, :, si, None, :]
                 w_pair = torch.where(
@@ -282,7 +307,7 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
         att = constrain(att, "batch", None, "rwkv_heads", None, None)
     # bonus (u) diagonal term: i == t
     bonus = torch.einsum("bnthd,bnthd->bnht",
-                         rh * p["bonus_u"].float(), kh)
+                         rh * bonus_u.float(), kh)
     intra = torch.einsum("bnhti,bnihd->bnthd", att, vh) \
         + bonus.permute(0, 1, 3, 2)[..., None] * vh
     # ----- inter-chunk: per-chunk state summary then associative scan
@@ -306,12 +331,7 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
     inter = torch.einsum("bnchk,bnhkv->bnchv", rdec, s_starts)
     o = (intra + inter).reshape(b, s, nh, hd)
     s_final = a_pfx[:, -1, :, :, None] * s0 + u_pfx[:, -1]
-    # group norm per head + gate
-    o = rms_norm(o, p["ln_x"].reshape(nh, hd)).reshape(b, s, d)
-    cdt = cfg.compute_dtype
-    out = (o.to(cdt) * F.silu(g)) @ p["wo"].to(cdt)
-    out = constrain(out, "batch", "seq", "embed")
-    return out, {"s": s_final, "prev": x[:, -1:]}
+    return o, s_final
 
 
 def rwkv_tmix_step(p, x, state, cfg: ModelConfig):

@@ -18,14 +18,13 @@ import functools
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        softcap)
-from repro_torch.sharding.api import constrain
+from repro_torch.sharding.api import constrain, replicated
 
 
 # ---------------------------------------------------------------------------
@@ -80,8 +79,16 @@ def _embed_scale(x, cfg: ModelConfig):
     return x
 
 
+def _lookup(table, ids):
+    return table[ids]
+
+
 def _embed(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    # aten.index_put (the lookup's backward): torch 2.11's DTensor rule
+    # fails on batch-sharded ids, so on a mesh each rank looks up its own
+    # batch rows in the whole table
+    x = replicated(_lookup, batched=(1,))(params["embed"], tokens) \
+        .to(cfg.compute_dtype)
     return constrain(_embed_scale(x, cfg), "batch", "seq", "embed")
 
 
@@ -182,11 +189,17 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     tokens = batch["tokens"]
     if cfg.frontend_dim and not cfg.enc_layers:    # vlm: skip patch prefix
         logits = logits[:, -tokens.shape[1]:]
-    targets = F.pad(tokens[:, 1:], (0, 1), value=-1)
+    # aten.constant_pad_nd: torch 2.11's DTensor rule gives its output one
+    # placement on a 2-D mesh, so the shifted targets are a cat
+    targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                        dim=1)
     mask = (targets >= 0) & (batch.get("mask", torch.ones_like(tokens)) > 0)
     logz = torch.logsumexp(logits, dim=-1)
+    # aten.gather over vocab-sharded logits: DTensor's vocab-parallel rule
+    # fails to reduce it, so the vocab dimension is gathered first
     tgt = torch.take_along_dim(
-        logits, torch.clamp(targets, min=0)[..., None].long(), dim=-1)[..., 0]
+        constrain(logits, "batch", "seq", None),
+        torch.clamp(targets, min=0)[..., None].long(), dim=-1)[..., 0]
     nll = (logz - tgt) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     metrics = {"loss": loss, "tokens": torch.sum(mask)}

@@ -1,4 +1,4 @@
-"""Pipeline parallelism: the GPipe schedule (``gpipe()`` is not ported)."""
-from repro_torch.pipeline.gpipe import schedule_intervals
+"""Pipeline parallelism (GPipe over a stage mesh dimension)."""
+from repro_torch.pipeline.gpipe import gpipe, schedule_intervals
 
-__all__ = ["schedule_intervals"]
+__all__ = ["gpipe", "schedule_intervals"]

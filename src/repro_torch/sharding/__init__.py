@@ -1,4 +1,12 @@
-"""Sharding: logical-axis annotations (only ``constrain`` so far)."""
-from repro_torch.sharding.api import constrain
+"""Sharding: logical-axis annotations + parameter partition rules."""
+from repro_torch.sharding.api import (ShardingRules, axis_size, constrain,
+                                      default_rules, named_sharding,
+                                      use_mesh)
+from repro_torch.sharding.params import (logical_param_specs,
+                                         param_shardings, physical_specs)
 
-__all__ = ["constrain"]
+__all__ = [
+    "ShardingRules", "axis_size", "constrain", "default_rules",
+    "named_sharding", "use_mesh", "logical_param_specs", "param_shardings",
+    "physical_specs",
+]

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import lm_loss
 from repro_torch.models.common import ModelConfig, tree_from_items, tree_items
@@ -40,6 +41,12 @@ def _value_and_grad(loss_fn: Callable, params, batch):
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(live, grads)]
+    # a DTensor gradient comes back Partial over the batch's mesh axes; it
+    # is reduced to its parameter's placements here, as the reference's
+    # gradients take their parameters' shardings (torch 2.11's AdamW
+    # update on Partial gradients gives NaN at the second step)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(g, DTensor) else g for p, g in zip(live, grads)]
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_from_items(params, grads)

@@ -731,3 +731,58 @@ def test_cuda_checkpoint_round_trip(cuda_device, tmp_path):
     for (path, a), (_, b) in zip(tree_items(out), tree_items(want)):
         assert a.device.type == "cuda" and a.dtype == b.dtype, path
         assert torch.equal(a.cpu(), b), path
+
+
+def _multirank_on_card(inputs: dict) -> dict:
+    """A rank of :func:`test_cuda_multirank_matches_cpu`: flash-decode and
+    gpipe (as many stages as ranks) with the ranks' tensors on the card,
+    and on the CPU too where the backend carries CPU tensors (gloo)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.pipeline import gpipe
+    from repro_torch.serve.decode_sharded import make_flash_decode
+    w = dist.get_world_size()
+    out = {}
+    devs = ("cuda", "cpu") if dist.get_backend() == "gloo" else ("cuda",)
+    for dev in devs:
+        x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        f = make_flash_decode(make_mesh((w,), ("model",), device=dev),
+                              ModelConfig(num_heads=8, num_kv_heads=2,
+                                          head_dim=16))
+        fd = f(x["q"], x["k"], x["v"], x["valid"]).to_local()
+        g = gpipe(lambda p, a: torch.tanh(a @ p["w"]),
+                  make_mesh((w,), ("stage",), device=dev), n_stages=w,
+                  n_micro=6)({"w": x["w"][:w]}, x["x"]).to_local()
+        out[dev] = (fd.cpu().numpy(), g.cpu().numpy())
+    return out
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")])
+def test_cuda_multirank_matches_cpu(cuda_device, world, backend):
+    """flash-decode and gpipe on the card: over NCCL at one rank, over
+    gloo at two ranks sharing the card (gpipe's host-staged shift), each
+    against the CPU at rtol/atol 1e-4 (float32 products without TF32)."""
+    from repro_torch.launch.mesh import run_ranks
+    rng = np.random.default_rng(0)
+    inputs = {
+        "q": rng.standard_normal((3, 1, 8, 16)).astype(np.float32),
+        "k": rng.standard_normal((3, 64, 2, 16)).astype(np.float32),
+        "v": rng.standard_normal((3, 64, 2, 16)).astype(np.float32),
+        "valid": np.arange(64)[None, :] <= np.asarray([10, 40, 63])[:, None],
+        "w": (rng.standard_normal((2, 16, 16)) * 0.5).astype(np.float32),
+        "x": rng.standard_normal((6, 8, 16)).astype(np.float32)}
+    ranks = run_ranks(_multirank_on_card, world, backend=backend,
+                      args=(inputs,), timeout=300)
+    x = torch.from_numpy(inputs["x"])
+    for s in range(world):
+        x = torch.tanh(x @ torch.from_numpy(inputs["w"][s]))
+    for r in ranks:
+        fd, g = r["cuda"]
+        np.testing.assert_allclose(g, x.numpy(), rtol=1e-4, atol=1e-4)
+        if "cpu" in r:
+            np.testing.assert_allclose(fd, r["cpu"][0], rtol=1e-4,
+                                       atol=1e-4)
+            np.testing.assert_allclose(g, r["cpu"][1], rtol=1e-4,
+                                       atol=1e-4)
+        np.testing.assert_array_equal(fd, ranks[0]["cuda"][0])

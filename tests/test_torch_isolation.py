@@ -46,7 +46,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.examples.pipeline_bubbles, "
             "repro_torch.examples.fleet_profile, "
             "repro_torch.models.recurrent, repro_torch.lint, "
-            "repro_torch.lint.watchdog, repro_torch.lint.runner\n"
+            "repro_torch.lint.watchdog, repro_torch.lint.runner, "
+            "repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.launch.rules, repro_torch.launch.train, "
+            "repro_torch.sharding.api, repro_torch.sharding.params, "
+            "repro_torch.serve.decode_sharded, repro_torch.pipeline.gpipe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(','.join(bad))\n")
