@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis, live, serving, training, recurrent-model and multi-rank paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live, serving, training, recurrent-model, multi-rank and dry-run paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -143,7 +143,20 @@ Phases (any failure exits non-zero):
    repro_torch.launch.train``'s ``main`` on tiny deepseek-7b for 4 steps
    on the card.
 
-Each path of phases 3-10 runs with every kernel's launch count set to 0
+11. Dry-run: ``repro_torch.launch.dryrun`` on fake ranks whose tensors
+   model CUDA ones (shapes, no storage).  (a) gemma3-1b ``train_4k`` and
+   deepseek-7b ``decode_32k`` at full width on the 16x16 mesh of a fake
+   world of 256 ranks, through ``run_cell``: each ``ok``, its JSON keys
+   the reference's, its per-chip argument bytes the sum of its leaves'
+   shards by the physical and ZeRO-1 specs; its roofline row and trace
+   seconds printed.  (b) Phase 8's step (gemma3-1b, B = 4, S = 1,024,
+   bf16, remat) traced on a fake world of one rank, then run on the card:
+   the traced FLOPs equal to ``FlopCounterMode`` on the real step and the
+   argument bytes to the real tensors', exactly; printed, the traced peak
+   over ``torch.cuda.max_memory_allocated()`` and the measured step
+   against the roofline's ``t_bound`` (the H100 data sheet's rates).
+
+Each path of phases 3-11 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -153,8 +166,8 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-10, ``phase10_launches``
-over phase 10's), and ``{"ok": true,
+``launches`` summed over the paths of phases 3-11, ``phase10_launches``
+over phase 10's, ``phase11_launches`` over phase 11's), and ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
@@ -1017,9 +1030,11 @@ def main(argv=None) -> int:
                "launch.train": launch_train_path(ops)}
     runs.update(phase10)
     print(f"[multirank] phase 10 {time.perf_counter() - t:.1f} s")
+    runs["dryrun"] = dryrun_path(ops, dev, smi)
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
         row["phase10_launches"] = sum(r[key] for r in phase10.values())
+        row["phase11_launches"] = runs["dryrun"][key]
     if args.profile:
         for label, chunk in (("whole-log", None), ("chunked", 1 << 20)):
             profile_main_path(label, lambda chunk=chunk: detect_offline(
@@ -2952,6 +2967,198 @@ def launch_train_path(ops) -> dict:
     print(f"[multirank] (d) launch.train --arch deepseek-7b --steps 4 on "
           f"the card: {time.perf_counter() - t:.1f} s, profile top "
           f"{top[0].strip() if top else '?'}, launches {launches}")
+    return launches
+
+
+# The reference's dry-run JSON schema (src/repro/launch/dryrun.py's
+# CellResult, its memory_analysis fields and Roofline.to_dict), copied:
+# this script imports nothing of the JAX package.
+CELL_KEYS = ["arch", "shape", "mesh", "ok", "seconds", "error", "memory",
+             "roofline"]
+MEMORY_KEYS = ["argument_size", "output_size", "temp_size",
+               "generated_code_size", "per_chip_total"]
+ROOFLINE_KEYS = ["arch", "shape", "mesh", "flops_per_chip", "bytes_per_chip",
+                 "coll_bytes_per_chip", "coll_breakdown", "t_compute",
+                 "t_memory", "t_collective", "model_flops", "peak_mem_bytes",
+                 "n_chips", "bottleneck", "useful_ratio", "roofline_fraction",
+                 "t_bound"]
+DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("deepseek-7b", "decode_32k"))
+
+
+def shard_bytes(struct, spec, sizes: dict) -> int:
+    """One rank's bytes of a leaf placed by ``spec`` on a mesh of axis
+    ``sizes``: its elements over the product of the axes that shard it."""
+    count = 1
+    for entry in spec:
+        for a in (() if entry is None else entry if isinstance(entry, tuple)
+                  else (entry,)):
+            count *= sizes[a]
+    return struct.numel() * struct.element_size() // count
+
+
+def expected_argument_bytes(arch: str, shape_name: str) -> int:
+    """A cell's per-chip argument bytes on the 16x16 mesh, summed over its
+    leaves' shards from the specs alone (the tracer not involved): the
+    physical specs of the parameters, and ZeRO-1's of both moments plus
+    the int32 step and the batch (train), or the decode state's, tokens'
+    and positions' (decode)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding import params as shparams
+    sizes = {"data": 16, "model": 16}
+    cfg, shape = configs.get_config(arch), configs.SHAPES[shape_name]
+    rules = dryrun.rules_for(arch, shape.kind)
+    p_struct = dryrun._param_structs(cfg)
+    p_specs = shparams.physical_specs(p_struct, sizes, rules)
+
+    def total(structs, shardings) -> int:
+        return sum(shard_bytes(s, sp, sizes) for s, sp in zip(
+            tree_leaves(structs), _spec_leaves(shardings)))
+    n = total(p_struct, p_specs)
+    if shape.kind == "train":
+        o_specs = dryrun.zero1(p_specs, p_struct, sizes, rules)
+        f32 = [torch.empty(s.shape, dtype=torch.float32, device="meta")
+               for s in tree_leaves(p_struct)]
+        n += 2 * total(f32, o_specs) + 4          # mu, nu, the step
+        b = specs.train_like_specs(cfg, shape)
+        n += total(list(b.values()), list(specs.train_like_shardings(
+            cfg, b, sizes, rules).values()))
+    else:
+        tok, pos, state, memory = specs.decode_state_specs(cfg, shape)
+        tok_sh, pos_sh, st_sh, _ = specs.decode_shardings(cfg, shape, sizes,
+                                                          rules)
+        check(memory is None, f"{arch} decodes with an encoder memory")
+        n += total([tok, pos], [tok_sh, pos_sh]) + total(state, st_sh)
+    return n
+
+
+def _spec_leaves(tree) -> list:
+    """The PartitionSpecs of a tree of dicts and lists, in leaf order (a
+    PartitionSpec is a tuple, and a leaf here)."""
+    from repro_torch.sharding.api import PartitionSpec
+    if isinstance(tree, PartitionSpec):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _spec_leaves(v)]
+    return [x for v in tree for x in _spec_leaves(v)]
+
+
+def dryrun_path(ops, dev, card: str) -> dict:
+    """Phase 11: the dry-run on fake ranks modelling CUDA tensors.  (a)
+    Two full-width cells on the 16x16 mesh of a fake world of 256 ranks
+    through ``dryrun.run_cell``: each ``ok``, its row and trace seconds
+    printed, its JSON keys the reference's, its per-chip argument bytes
+    the sum of its leaves' shards.  (b) Phase 8's step (gemma3-1b at full
+    width, B = 4, S = 1,024, bf16, remat) traced on a fake world of one
+    rank, then run on the card: the traced FLOPs equal to
+    ``FlopCounterMode`` on the real step and the argument bytes to the
+    real tensors', exactly; the traced peak against
+    ``torch.cuda.max_memory_allocated()`` and the measured step against
+    the roofline's ``t_bound`` printed.  Every number printed is this
+    card's (``card``: its name and power limit); the roofline's seconds
+    are the H100 data sheet's rates, modelled.  Returns the phase's kernel
+    launches (none: the dry-run runs no kernel of the port)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline
+    from repro_torch.models import init_lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    fields = {f.name for f in dataclasses.fields(roofline.Roofline)}
+    for arch, shape_name in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape_name, "single", device=dev)
+        check(r.ok, f"dry-run {arch} {shape_name}: {r.error}")
+        row = dataclasses.asdict(r)
+        check(list(row) == CELL_KEYS and list(r.memory) == MEMORY_KEYS
+              and list(r.roofline) == ROOFLINE_KEYS,
+              f"dry-run {arch} {shape_name} keys {list(row)}, "
+              f"{list(r.memory)}, {list(r.roofline)}")
+        want = expected_argument_bytes(arch, shape_name)
+        check(r.memory["argument_size"] == want,
+              f"dry-run {arch} {shape_name}: argument bytes "
+              f"{r.memory['argument_size']} != {want} from the specs")
+        rf = roofline.Roofline(**{k: v for k, v in r.roofline.items()
+                                  if k in fields})
+        for line in roofline.render_table([rf]).splitlines():
+            print(f"[dryrun] {line}")
+        print(f"[dryrun] {arch} {shape_name} single (16x16 fake ranks, "
+              f"cuda): traced in {r.seconds:.1f} s; argument "
+              f"{r.memory['argument_size']:,} B, temp "
+              f"{r.memory['temp_size']:,} B, per chip "
+              f"{r.memory['per_chip_total'] / 2**30:.2f} GiB; t_bound "
+              f"{rf.t_bound * 1e3:.3f} ms ({rf.bottleneck}); collectives "
+              f"{ {k: f'{v:.4g}' for k, v in rf.coll_breakdown.items()} }")
+
+    # (b) the cost model against the card
+    cfg = configs.get_config(TRAIN_ARCH)
+    shape = ShapeSpec(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    with mesh_lib.fake_world(1):
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device=dev)
+        trace, memory, rf = dryrun.lower_cell(
+            TRAIN_ARCH, shape.name, "single", cfg=cfg, shape=shape,
+            mesh=mesh, device=dev, return_artifacts=True)
+    t_trace = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    params = init_lm(torch.Generator(dev).manual_seed(SEED), cfg, device=dev)
+    opt = adamw.init(params)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+        device=dev, generator=torch.Generator(dev).manual_seed(SEED + 1))}
+    args = tree_leaves(params) + tree_leaves(opt) + list(batch.values())
+    arg_bytes = sum(x.nbytes for x in args)
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = step(params, opt, batch, None)
+    torch.cuda.synchronize()
+    real_flops = counter.get_total_flops()
+    del out
+    check(trace.flops == real_flops,
+          f"traced FLOPs {trace.flops:.6e} != FlopCounterMode on the real "
+          f"step {real_flops:.6e}")
+    check(trace.argument_bytes == arg_bytes,
+          f"traced argument bytes {trace.argument_bytes:,} != the real "
+          f"tensors' {arg_bytes:,}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(4):
+        t = time.perf_counter()
+        out = step(params, opt, batch, None)
+        float(out[2]["loss"])
+        times.append(time.perf_counter() - t)
+        del out
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(times)) * 1e3
+    print(f"[dryrun] (b) {cfg.name} B = {TRAIN_BATCH}, S = {TRAIN_SEQ}, "
+          f"bf16, remat {cfg.remat}, one fake rank traced in {t_trace:.1f} s "
+          f"({trace.ops:,} local ops): FLOPs {trace.flops:.6e} == "
+          f"FlopCounterMode on the card's step; argument bytes "
+          f"{arg_bytes:,} == the real tensors'; bytes {trace.bytes:.6e}")
+    print(f"[dryrun] (b) on {card}: traced peak {rf.peak_mem_bytes:,.0f} B "
+          f"/ max_memory_allocated {peak:,} B (arguments {base:,} B "
+          f"allocated before the steps) = {rf.peak_mem_bytes / peak:.4f}")
+    print(f"[dryrun] (b) on {card}: step {ms:.3f} ms (median of "
+          f"{[round(x * 1e3, 3) for x in times]}) against t_bound "
+          f"{rf.t_bound * 1e3:.3f} ms ({rf.bottleneck}; t_compute "
+          f"{rf.t_compute * 1e3:.3f}, t_memory {rf.t_memory * 1e3:.3f}): "
+          f"measured roofline fraction {rf.t_bound * 1e3 / ms:.4f}")
+    del params, opt, batch, args
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    print(f"[dryrun] phase 11 {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches}")
     return launches
 
 

@@ -8,11 +8,10 @@ group per mesh dimension where the reference has an axis name.
 ``--xla_force_host_platform_device_count`` for tests, examples and
 ``chip_smoke.py``.
 
-``make_production_mesh`` (16x16 and 2x16x16) belongs to the XLA dry-run,
-which is not ported yet; it comes with it.  The rule tables can be checked
-against those shapes without 256 ranks, since
-:func:`repro_torch.sharding.api.filter_spec` reads only a name-to-size
-mapping of a mesh.
+``make_production_mesh`` gives the dry-run's 16x16 and 2x16x16 meshes
+over a world of 256 or 512 ranks; :func:`fake_world` starts such a world
+in one process, whose collectives move nothing (the counterpart of the
+reference's ``--xla_force_host_platform_device_count=512``).
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import pickle
 import queue
 import tempfile
 import traceback
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
@@ -49,6 +49,36 @@ def make_mesh(shape, axes, *, device=None) -> DeviceMesh:
                          f"{math.prod(shape)} ranks, the world has "
                          f"{dist.get_world_size()}")
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The production mesh, (16, 16) ``("data", "model")`` or, with
+    ``multi_pod``, (2, 16, 16) ``("pod", "data", "model")``, over the
+    initialised world (256 or 512 ranks; see :func:`fake_world`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
+
+
+@contextmanager
+def fake_world(n: int):
+    """A world of ``n`` ranks in this process, as rank 0, over
+    ``torch.distributed``'s fake backend: every collective returns at
+    once and moves nothing, so a program's placements, shapes and
+    collectives can be traced on fake tensors without the ranks.  The
+    world ends on exit."""
+    # the fake backend registers itself when its module is imported
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1, data: int | None = None,
@@ -149,3 +179,6 @@ PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 on the tensor cores
 HBM_BW = 3.35e12                  # B/s, HBM3
 ICI_BW = 450e9                    # B/s per direction: NVLink 4, 900 GB/s
                                   # both directions together
+# An NVLink domain holds 8 H100s, so the production mesh's 16-wide
+# ``model`` axis crosses it, onto the slower network between hosts: a
+# collective time at ICI_BW is a lower bound there.

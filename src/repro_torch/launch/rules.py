@@ -1,8 +1,9 @@
 """The launcher's per-arch and per-shape-kind rule overrides.
 
 Plain data copied from the JAX package's dry-run (``launch/dryrun.py``),
-whose other parts (lowering, compiling, the roofline) are not ported yet:
-the sharded train step and the tests bind these rules.
+kept in this module of their own so that the sharded steps and the tests
+bind them without the dry-run; :mod:`repro_torch.launch.dryrun`
+re-exports them.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ cache in place (see its docstring).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
@@ -45,13 +46,33 @@ def init_attention(gen, cfg: ModelConfig, *, device=None) -> dict:
     return p
 
 
+def _split_heads(t, n: int):
+    """(B, S, n * hd) -> (B, S, n, hd).
+
+    aten.view: DTensor cannot split a sharded dimension whose leading
+    factor ``n`` the shard count does not divide (gemma3's 4 heads on a
+    16-way ``model`` axis), so such a projection is gathered over those
+    mesh dimensions first; the heads then stay whole, as the filtered
+    ``constrain`` after the split leaves them."""
+    if isinstance(t, DTensor):
+        split = [isinstance(p, Shard) and p.dim == 2 for p in t.placements]
+        count = 1
+        for size, on in zip(t.device_mesh.shape, split):
+            count *= size if on else 1
+        if n % count:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if on else p
+                for p, on in zip(t.placements, split)])
+    b, s, _ = t.shape
+    return t.reshape(b, s, n, -1)
+
+
 def _project_q(p, x, cfg: ModelConfig, positions):
-    b, s, _ = x.shape
     cdt = cfg.compute_dtype
     q = x @ p["wq"].to(cdt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
-    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    q = _split_heads(q, cfg.num_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
     q = rope(q, positions, cfg.rope_theta)
@@ -59,15 +80,14 @@ def _project_q(p, x, cfg: ModelConfig, positions):
 
 
 def _project_kv(p, x, cfg: ModelConfig, positions):
-    b, s, _ = x.shape
     cdt = cfg.compute_dtype
     k = x @ p["wk"].to(cdt)
     v = x @ p["wv"].to(cdt)
     if cfg.qkv_bias:
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.hd)
+    k = _split_heads(k, cfg.num_kv_heads)
+    v = _split_heads(v, cfg.num_kv_heads)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     if positions is not None:
@@ -77,11 +97,12 @@ def _project_kv(p, x, cfg: ModelConfig, positions):
     return k, v
 
 
-def _sdpa(q, k, v, mask, cfg: ModelConfig):
+def _sdpa(q, k, v, mask, cfg: ModelConfig, kv_seq: str = "seq"):
     """Grouped scaled dot-product attention.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); mask: broadcastable to
-    (B, KV, G, Sq, Sk) or None.
+    (B, KV, G, Sq, Sk) or None.  ``kv_seq``: the logical axis of k's and
+    v's sequence (``cache_seq`` for a decode cache).
 
     q is scaled in its own dtype, then q and k go to float32 for the score
     product (the reference's ``preferred_element_type=float32``); the
@@ -97,8 +118,8 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     # einsums' batch and head dimensions when both carry a shard, so on a
     # mesh the heads are gathered first (a no-op elsewhere)
     q = constrain(q, "batch", "seq", None, "head_dim")
-    k = constrain(k, "batch", "seq", None, "head_dim")
-    v = constrain(v, "batch", "seq", None, "head_dim")
+    k = constrain(k, "batch", kv_seq, None, "head_dim")
+    v = constrain(v, "batch", kv_seq, None, "head_dim")
     if cfg.opt_level >= 1:
         if g > 1:
             k = torch.repeat_interleave(k, g, dim=2)
@@ -237,6 +258,41 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int,
     }
 
 
+def _write_shards(cache, slot, new) -> None:
+    """``cache[b, slot[b]] = new[b]`` for every row ``b``, in place, on a
+    DTensor cache: each rank writes the rows of its own shard.
+
+    aten.index_put_: DTensor has no in-place rule for a cache sharded
+    over the batch and the cache sequence (the ``decode`` rules), so each
+    rank takes its batch rows of ``slot`` and ``new``, and writes the
+    slots that fall in its span of the sequence into its local shard; a
+    row whose slot lies on another rank writes back what it holds."""
+    mesh, placements = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    span = local.shape[1]
+    # this rank's first slot: its index among the sequence's shards (the
+    # first mesh dimension the major), times the shard's length
+    first = 0
+    for size, coord, p in zip(mesh.shape, mesh.get_coordinate(),
+                              placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            first = first * size + coord
+    first *= span
+    # the new row's dimension d is the cache's d + 1 past the batch
+    row_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else
+                   Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                   else Replicate() for p in placements)
+    slot_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else
+                    Replicate() for p in placements)
+    new = new.redistribute(mesh, row_pl).to_local().to(local.dtype)
+    at = slot.redistribute(mesh, slot_pl).to_local() - first
+    mine = (at >= 0) & (at < span)
+    at = at.clamp(0, span - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = (slice(None),) + (None,) * (new.ndim - 1)
+    local[rows, at] = torch.where(mine[keep], new, local[rows, at])
+
+
 def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
                      window: int | None, kv_memory=None) -> tuple:
     """One-token decode step.  ``pos``: i32[B] absolute positions.
@@ -262,9 +318,13 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
     slot = (pos % length).long()                 # (B,)
-    rows = torch.arange(b, device=x.device)
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    if isinstance(k, DTensor):
+        _write_shards(k, slot, k_new[:, 0])
+        _write_shards(v, slot, v_new[:, 0])
+    else:
+        rows = torch.arange(b, device=x.device)
+        k[rows, slot] = k_new[:, 0].to(k.dtype)
+        v[rows, slot] = v_new[:, 0].to(v.dtype)
     # validity: linear-fill semantics, as in the reference (a ring that
     # wrapped counts every slot as written)
     slots = torch.arange(length, device=x.device)[None, :]   # (1, L)
@@ -272,7 +332,10 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     if window is not None:
         written &= slots > pos[:, None] - window
     mask = written[:, None, None, None, :]       # (B,1,1,1,L)
-    out = _sdpa(q, k, v, mask, cfg)
+    # the cache keeps its sequence shard: the scores come out sharded
+    # over it, DTensor gathers them for the softmax, and the product with
+    # v sums each rank's slots (no rank gathers the cache)
+    out = _sdpa(q, k, v, mask, cfg, kv_seq="cache_seq")
     y = out.reshape(b, 1, -1) @ p["wo"].to(cfg.compute_dtype)
     y = constrain(y, "batch", None, "embed")
     return y, cache

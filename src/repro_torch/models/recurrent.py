@@ -334,6 +334,10 @@ def _rwkv_chunks(r, k, v, logw, s0, bonus_u, cfg: ModelConfig):
     return o, s_final
 
 
+def _read_state(r, s):
+    return torch.einsum("bhk,bhkv->bhv", r, s)
+
+
 def rwkv_tmix_step(p, x, state, cfg: ModelConfig):
     """One-token decode.  x: (B,1,D)."""
     b, _, d = x.shape
@@ -346,8 +350,11 @@ def rwkv_tmix_step(p, x, state, cfg: ModelConfig):
     w = torch.exp(logw[:, 0].reshape(b, nh, hd))
     s_prev = state["s"]
     kv = kh[..., :, None] * vh[..., None, :]          # (B,NH,hd,hd)
-    o = torch.einsum("bhk,bhkv->bhv", rh,
-                     s_prev + p["bonus_u"].float()[..., None] * kv)
+    # aten._unsafe_view: DTensor cannot flatten the einsum's batch and
+    # head dimensions when both carry a shard, so on a mesh each rank
+    # reads its batch rows' state with every head
+    o = replicated(_read_state, batched=(0, 1))(
+        rh, s_prev + p["bonus_u"].float()[..., None] * kv)
     s_new = w[..., None] * s_prev + kv
     o = rms_norm(o, p["ln_x"].reshape(nh, hd)).reshape(b, 1, d)
     cdt = cfg.compute_dtype

@@ -14,17 +14,20 @@ instead of keeping them.  Without grad (serving) it changes nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import device as device_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        softcap)
-from repro_torch.sharding.api import constrain, replicated
+from repro_torch.sharding.api import (constrain, current_binding,
+                                      replicated, use_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +137,18 @@ def encode(params, frontend_feats, cfg: ModelConfig):
     return rms_norm(x, params["enc_norm"])
 
 
+def _remat_contexts():
+    """The contexts of a remat group's forward and of its recompute.  The
+    recompute runs in the backward pass, for CUDA tensors on autograd's
+    device thread, where the forward thread's mesh binding (thread-local,
+    as DTensor's implicit replication is) is not set: it runs under the
+    binding the forward saw."""
+    binding = current_binding()
+    return contextlib.nullcontext(), (
+        use_mesh(*binding) if binding is not None
+        else contextlib.nullcontext())
+
+
 def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
             local_impl="mask"):
     """Full-sequence forward -> (logits, aux).
@@ -171,7 +186,8 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
                                 local_impl=local_impl, pattern=pattern)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                gfn, gparams, x, positions, use_reentrant=False)
+                gfn, gparams, x, positions, use_reentrant=False,
+                context_fn=_remat_contexts)
         else:
             x, aux = gfn(gparams, x, positions)
         aux_total = _add_aux(aux_total, aux)
@@ -237,7 +253,18 @@ def decode_step(params, tokens, pos, state, cfg: ModelConfig, *,
     (encoder output, positions) pair of :func:`cross_memory` for enc-dec
     cross attention (projected per block on the fly).
     """
-    x = params["embed"][tokens[:, None]].to(cfg.compute_dtype)
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        # aten.index: DTensor gathers a vocab-sharded table whole for it;
+        # aten.embedding's rule looks each id up in the rank's own rows
+        # and sums over the vocab's shards, here at once (torch 2.11
+        # cannot reduce that masked partial sum after other ops)
+        x = torch.nn.functional.embedding(tokens[:, None], table)
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    else:
+        x = table[tokens[:, None]]
+    x = x.to(cfg.compute_dtype)
     x = constrain(_embed_scale(x, cfg), "batch", None, "embed")
     new_state = []
     group_list = [(gp, cfg.block_pattern) for gp in params["groups"]]

@@ -49,6 +49,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.lint.watchdog, repro_torch.lint.runner, "
             "repro_torch.launch, repro_torch.launch.mesh, "
             "repro_torch.launch.rules, repro_torch.launch.train, "
+            "repro_torch.launch.cost, repro_torch.launch.specs, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+            "repro_torch.launch.perf, repro_torch.launch.tabulate, "
             "repro_torch.sharding.api, repro_torch.sharding.params, "
             "repro_torch.serve.decode_sharded, repro_torch.pipeline.gpipe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
