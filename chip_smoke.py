@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's analysis, live, serving, training, recurrent-model, multi-rank and dry-run paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's analysis, live, serving, training, recurrent-model, multi-rank, dry-run and model-family paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -156,7 +156,28 @@ Phases (any failure exits non-zero):
    over ``torch.cuda.max_memory_allocated()`` and the measured step
    against the roofline's ``t_bound`` (the H100 data sheet's rates).
 
-Each path of phases 3-11 runs with every kernel's launch count set to 0
+12. Families: the archs' paths no other phase runs on the card.  (a)
+   Tiny qwen1.5-4b (QKV bias), seamless-m4t-large-v2 (encoder, cross
+   attention, decode over ``cross_memory``), internvl2-2b (the patch
+   prefix, and the decode that skips it) and arctic-480b (MoE beside a
+   dense residual) in float32, card against CPU at rtol/atol 1e-4: the
+   forward, 8 teacher-forced decode steps, and three ``make_train_step``
+   steps (the losses, and the parameters and moments after the third).
+   (b) seamless-m4t-large-v2, internvl2-2b, recurrentgemma-2b (B 4, S
+   1,024 each; the ``Trainer`` gives seamless 512 frames of 80 and
+   internvl2 256 patches of 1,024) and rwkv6-1.6b (B 1, S 256) at their
+   published widths: float32 masters drawn on the card from the seed, the
+   float32 forward against 8 teacher-forced decode steps at rtol/atol
+   1e-3 (rwkv6's printed, each layer's chunked time mix held against its
+   steps, as in phase 9), then the ``train_lm`` flow's ``Trainer`` for 4
+   steps in bf16 over float32 masters, remat on, under a fused GAPP
+   session on the card.  Held: every loss and grad norm finite, the last
+   loss below the first, ``trainer`` and ``data_loader`` workers in the
+   report, a ``carry_cumsum`` and a ``tag_hist`` launch in each run.
+   Printed: ms a step (median), tokens/s, the step's FLOPs
+   (``FlopCounterMode``) against 989 TFLOP/s bf16, peak device memory.
+
+Each path of phases 3-12 runs with every kernel's launch count set to 0
 just before it and read just after, and must launch the kernels it goes
 through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
@@ -166,9 +187,10 @@ kernels are also checked at the shapes the live and fleet paths hand them
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
-``launches`` summed over the paths of phases 3-11, ``phase10_launches``
-over phase 10's, ``phase11_launches`` over phase 11's), and ``{"ok": true,
-"device": {...}}``.
+``launches`` summed over the paths of phases 3-12, ``phase10_launches``
+over phase 10's, ``phase11_launches`` over phase 11's,
+``phase12_launches`` over phase 12's), and ``{"ok": true, "device":
+{...}}``.
 
 ``--profile`` adds one more run of each main-path mode under ``cProfile``
 and ``torch.profiler``: the host functions that take the time, and the
@@ -1031,10 +1053,12 @@ def main(argv=None) -> int:
     runs.update(phase10)
     print(f"[multirank] phase 10 {time.perf_counter() - t:.1f} s")
     runs["dryrun"] = dryrun_path(ops, dev, smi)
+    runs["families"] = families_path(ops, dev, smi)
     for key, row in rows.rows.items():
         row["launches"] = sum(r[key] for r in runs.values())
         row["phase10_launches"] = sum(r[key] for r in phase10.values())
         row["phase11_launches"] = runs["dryrun"][key]
+        row["phase12_launches"] = runs["families"][key]
     if args.profile:
         for label, chunk in (("whole-log", None), ("chunked", 1 << 20)):
             profile_main_path(label, lambda chunk=chunk: detect_offline(
@@ -1390,22 +1414,47 @@ SERVE_TINY_ARCHS = ("deepseek-7b", "qwen3-32b", "gemma3-1b", "grok-1-314b")
 SERVE_ARCH = "deepseek-7b"
 
 
-def forward_and_decode(params, cfg, tokens):
+def forward_and_decode(params, cfg, tokens, frontend=None):
     """Forward logits over ``tokens`` (B, T) and the logits of T
     teacher-forced decode steps from a zeroed cache of T slots, stacked to
-    (B, T, V), both on the host."""
+    (B, T, V), both on the host.  ``frontend`` is the frontend stub's
+    input (:func:`frontend_input`): an encoder-decoder's frames, whose
+    encoder output the decode steps attend to (``cross_memory``), or a
+    VLM's patches, which only the forward sees (its decode skips the
+    prefix, as the reference's does)."""
     import torch
-    from repro_torch.models import decode_step, forward, init_decode_state
+    from repro_torch.models import (cross_memory, decode_step, forward,
+                                    init_decode_state)
     b, t_len = tokens.shape
     dev = tokens.device
-    full, _ = forward(params, {"tokens": tokens}, cfg)
+    batch, memory = {"tokens": tokens}, None
+    if frontend is not None:
+        batch["frontend"] = frontend
+        if cfg.enc_layers:
+            memory = cross_memory(params, cfg, frontend)
+    full, _ = forward(params, batch, cfg)
     state = init_decode_state(cfg, b, t_len, device=dev)
     steps = []
     for t in range(t_len):
         lg, state = decode_step(params, tokens[:, t], torch.full(
-            (b,), t, dtype=torch.int32, device=dev), state, cfg)
+            (b,), t, dtype=torch.int32, device=dev), state, cfg,
+            memory=memory)
         steps.append(lg)
     return full.cpu(), torch.stack(steps, 1).cpu()
+
+
+def frontend_input(cfg, b: int, rng, frames: int = 12, prefix=None):
+    """The frontend stub's input for ``cfg``, drawn from ``rng``:
+    ``frames`` audio frames for an encoder-decoder, ``prefix`` patches
+    (the config's ``num_prefix`` when None) for a VLM, None for the
+    others."""
+    import torch
+    if not cfg.frontend_dim:
+        return None
+    n = frames if cfg.enc_layers else (
+        cfg.num_prefix if prefix is None else prefix)
+    return torch.from_numpy(rng.standard_normal(
+        (b, n, cfg.frontend_dim)).astype(np.float32))
 
 
 def _max_diff(a, b) -> float:
@@ -1429,10 +1478,14 @@ def tiny_archs_on_card(dev, archs=SERVE_TINY_ARCHS, tag="serve") -> None:
         cpu_p = init_lm(torch.Generator().manual_seed(SEED), cfg,
                         device="cpu")
         dev_p = tree_map(lambda x: x.to(dev), cpu_p)
-        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (2, 8)).astype(np.int32))
-        on_cpu = forward_and_decode(cpu_p, cfg, tokens)
-        on_card = forward_and_decode(dev_p, cfg, tokens.to(dev))
+        front = frontend_input(cfg, 2, rng)
+        on_cpu = forward_and_decode(cpu_p, cfg, tokens, front)
+        on_card = forward_and_decode(
+            dev_p, cfg, tokens.to(dev),
+            None if front is None else front.to(dev))
         diffs = [_max_diff(a, b) for a, b in zip(on_card, on_cpu)]
         print(f"[{tag}] tiny {arch} float32, card against CPU: forward max "
               f"|diff| {diffs[0]:.3e}, decode {diffs[1]:.3e} (rtol/atol "
@@ -1443,7 +1496,7 @@ def tiny_archs_on_card(dev, archs=SERVE_TINY_ARCHS, tag="serve") -> None:
 
 
 def full_width_float32(params, cfg, dev, batch=2, t_len=8,
-                       tag="serve", hold=True) -> None:
+                       tag="serve", hold=True, frontend=None) -> None:
     """A model at full width, computing in float32 on the masters
     themselves: ``batch`` sequences of ``t_len`` tokens from the seed,
     teacher-forced ``decode_step`` at every position against ``forward``,
@@ -1451,13 +1504,16 @@ def full_width_float32(params, cfg, dev, batch=2, t_len=8,
     differently for the step's rows and the sequence's; a recurrent
     block's scan or chunked form against its step form; logits are
     ~N(0, 1)).  ``hold`` False prints the gap by position instead (see
-    :func:`rwkv_chunked_against_steps`)."""
+    :func:`rwkv_chunked_against_steps`).  ``frontend`` goes to
+    :func:`forward_and_decode`."""
     import torch
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (batch, t_len)).astype(np.int32)).to(dev)
     t = time.perf_counter()
-    full, dec = forward_and_decode(params, cfg32, tokens)
+    full, dec = forward_and_decode(
+        params, cfg32, tokens,
+        None if frontend is None else frontend.to(dev))
     secs = time.perf_counter() - t
     d = _max_diff(full, dec)
     ok = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
@@ -1939,9 +1995,13 @@ def train_steps_tiny(cfg, params, dev, steps: int = 3):
     s = adamw.init(p)
     losses = []
     for i in range(steps):
-        toks = np.random.default_rng(SEED + i).integers(
-            0, cfg.vocab_size, (4, 16)).astype(np.int32)
-        p, s, m, _ = step(p, s, {"tokens": torch.from_numpy(toks).to(dev)},
+        rng = np.random.default_rng(SEED + i)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 16)).astype(np.int32))}
+        front = frontend_input(cfg, 4, rng, frames=8)   # the Trainer's S/2
+        if front is not None:
+            batch["frontend"] = front
+        p, s, m, _ = step(p, s, {k: v.to(dev) for k, v in batch.items()},
                           None)
         losses.append(float(m["loss"]))
     return losses, tree_map(lambda x: x.cpu(), {"params": p, "opt": s})
@@ -3160,6 +3220,165 @@ def dryrun_path(ops, dev, card: str) -> dict:
     print(f"[dryrun] phase 11 {time.perf_counter() - t_phase:.1f} s, "
           f"launches {launches}")
     return launches
+
+
+# -- phase 12: the families no other phase runs on the card ------------------
+
+#: QKV bias; encoder, cross attention and ``cross_memory``; the patch
+#: prefix and the decode that skips it; MoE beside a dense residual
+FAMILY_TINY_ARCHS = ("qwen1.5-4b", "seamless-m4t-large-v2", "internvl2-2b",
+                     "arctic-480b")
+#: (B, S) of the full-width ``Trainer`` runs; rwkv6-1.6b at two chunks
+#: (its forward alone makes ~11,400 launches)
+FAMILY_TRAIN = {"seamless-m4t-large-v2": (4, 1024),
+                "internvl2-2b": (4, 1024),
+                "recurrentgemma-2b": (4, 1024),
+                "rwkv6-1.6b": (1, 256)}
+FAMILY_STEPS = 4
+
+
+def family_check(params, cfg, dev) -> None:
+    """The full-width float32 forward against 8 teacher-forced decode
+    steps (:func:`full_width_float32`), at 1e-3: seamless-m4t decodes over
+    the ``cross_memory`` of 12 frames; internvl2's decode, which skips the
+    patch prefix, against the forward of the same text with an empty
+    prefix; rwkv6's gap printed by position, and each layer's chunked time
+    mix held against its steps instead, as phase 9 does."""
+    rng = np.random.default_rng(SEED + 2)
+    front = frontend_input(cfg, 2, rng, prefix=0)
+    rwkv = "rwkv" in cfg.block_pattern
+    tokens, _ = full_width_float32(params, cfg, dev, tag="families",
+                                   hold=not rwkv, frontend=front)
+    if rwkv:
+        rwkv_chunked_against_steps(params, cfg, tokens, tag="families")
+
+
+def step_flops(cfg, step_fn, params, opt, b: int, s: int, dev) -> int:
+    """FLOPs of one training step as it runs (``FlopCounterMode``: the
+    products with the weights and the attention products, remat's
+    recompute included) on ``params`` and ``opt`` (updated in place) and
+    a ``SyntheticLM`` batch of the ``Trainer``'s shapes."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.pipeline import SyntheticLM
+    front = None
+    if cfg.enc_layers:
+        front = (s // 2, cfg.frontend_dim)
+    elif cfg.frontend_dim:
+        front = (cfg.num_prefix, cfg.frontend_dim)
+    batch = SyntheticLM(cfg.vocab_size, s, b, SEED,
+                        frontend_shape=front).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = step_fn(params, opt, batch, None)
+    float(out[2]["loss"])
+    return counter.get_total_flops()
+
+
+def family_train(ops, dev, arch: str, card: str) -> dict:
+    """One arch at its published width: float32 masters drawn on the card
+    from the seed and :func:`family_check`; then the ``train_lm`` flow's
+    ``Trainer`` for ``FAMILY_STEPS`` steps in bf16 over float32 masters
+    (drawn again from the seed), remat as the config sets it, under a
+    fused GAPP session on the card, every kernel call held.  Held: every
+    loss and grad norm finite, the last loss below the first, a
+    ``trainer`` and a ``data_loader`` worker in the report, a
+    ``carry_cumsum`` and a ``tag_hist`` launch.  Printed beside ``card``:
+    ms a step, tokens/s, the step's FLOPs against 989 TFLOP/s bf16, peak
+    device memory.  Returns the run's kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples.train_lm import train_phase
+    from repro_torch.models import init_lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import TrainerConfig
+    t_arch = time.perf_counter()
+    cfg = configs.get_config(arch)
+    b, s = FAMILY_TRAIN[arch]
+    params = init_lm(torch.Generator(dev).manual_seed(SEED), cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[families] {cfg.name} full width: {cfg.param_count():,} "
+          f"parameters ({cfg.num_layers} layers"
+          f"{f', {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+          f", d_model {cfg.d_model}, vocab {cfg.vocab_size:,}), float32 "
+          f"masters drawn on the card, {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB")
+    family_check(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    # the train_lm example's schedule: 4 steps of its 20-step warmup
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=300)
+    step_fn = make_train_step(cfg, opt_cfg)
+    tcfg = TrainerConfig(steps=FAMILY_STEPS, batch_per_host=b, seq_len=s,
+                         ckpt_every=0, log_every=10**6, seed=SEED)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with recording() as calls:
+        tr, params, opt = train_phase(cfg, opt_cfg, tcfg,
+                                      timed_step(step_fn, times), dev)
+        rep = tr.profile_report()
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hold_recorded(f"families {arch}", calls, launches)
+    flops = step_flops(cfg, step_fn, params, opt, b, s, dev)
+    bound = flops / BF16_OPS_PER_S * 1e3
+    del calls, params, opt
+    losses = [h["loss"] for h in tr.history]
+    norms = [h["grad_norm"] for h in tr.history]
+    front = (f", {s // 2} frames of {cfg.frontend_dim}" if cfg.enc_layers
+             else f", {cfg.num_prefix} patches of {cfg.frontend_dim}"
+             if cfg.frontend_dim else "")
+    print(f"[families] {cfg.name} Trainer, B = {b}, S = {s}{front}, bf16, "
+          f"remat {cfg.remat}: losses {', '.join(f'{x:.4f}' for x in losses)}"
+          f"; grad norms {', '.join(f'{x:.3f}' for x in norms)}; workers "
+          f"{rep.worker_names}; launches {launches}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"families {arch}: a loss or grad norm is not finite")
+    check(losses[-1] < losses[0], f"families {arch}: loss did not drop: "
+          f"{losses}")
+    check({"trainer", "data_loader"} <= set(rep.worker_names),
+          f"families {arch}: workers {rep.worker_names}")
+    check(launches["carry_cumsum"] >= 1 and launches["hist"] >= 1,
+          f"families {arch} launched {launches}")
+    med = 1e3 * float(np.median(times))
+    print(f"[families] {cfg.name} on {card}: {med:.3f} ms a step (median "
+          f"of {len(times)}; {', '.join(f'{x * 1e3:.1f}' for x in times)}),"
+          f" {b * s / med * 1e3:.1f} tokens/s; {flops / 1e12:.3f} TFLOP a "
+          f"step (FlopCounterMode, remat's recompute included), compute "
+          f"bound {bound:.3f} ms at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s "
+          f"bf16 = {100 * bound / med:.2f}% of the step; peak device memory "
+          f"{peak / 1e9:.2f} GB; {time.perf_counter() - t_arch:.1f} s")
+    del tr, rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_path(ops, dev, card: str) -> dict:
+    """Phase 12: the families no other phase runs on the card.  Tiny
+    qwen1.5-4b, seamless-m4t-large-v2, internvl2-2b and arctic-480b card
+    against CPU (forward, 8 decode steps, 3 train steps; float32, 1e-4);
+    then seamless-m4t-large-v2, internvl2-2b, recurrentgemma-2b and
+    rwkv6-1.6b at their published widths (:func:`family_train`).  Returns
+    the phase's kernel launches, summed over the four runs."""
+    import torch
+    t_phase = time.perf_counter()
+    print(f"[families] card: {card}")
+    tiny_archs_on_card(dev, FAMILY_TINY_ARCHS, tag="families")
+    train_tiny_on_card(dev, FAMILY_TINY_ARCHS, tag="families")
+    print(f"[families] tiny archs {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    total: dict = {}
+    for arch in FAMILY_TRAIN:
+        for key, n in family_train(ops, dev, arch, card).items():
+            total[key] = total.get(key, 0) + n
+    print(f"[families] phase 12 {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}")
+    return total
 
 
 if __name__ == "__main__":

@@ -901,6 +901,8 @@ class IngestServer:
         self._stats_lock = threading.Lock()
         self._idle = threading.Condition(self._lock)
         self._open_conns = 0                # guarded-by: self._lock
+        # finish_host requests for the loop: (host, done event)
+        self._finishing: list = []          # guarded-by: self._lock
         self._stopped = threading.Event()   # stop accepting
         self._shutdown = threading.Event()  # stop the loop entirely
         # counters
@@ -1027,18 +1029,47 @@ class IngestServer:
     def finish_host(self, host_id: str) -> bool:
         """Operator override: retire a host that died without BYE (its
         unfinished stream otherwise pins the merge watermark and healthy
-        hosts' chunks buffer until ``request_stop``)."""
+        hosts' chunks buffer until ``request_stop``).
+
+        The loop thread retires it, after it has read and pushed every
+        byte already in the host's sockets: a producer's ``flush`` returns
+        once a chunk is in the socket, and a stream finished before the
+        loop pushed that chunk would drop it from the report."""
         with self._lock:
             st = self._hosts.get(host_id)
-        if st is None:
-            return False
+            if st is None:
+                return False
+            done = threading.Event()
+            self._finishing.append((st, done))
+        self._wake()
+        loop = self._loop_thread
+        while not done.wait(0.05):
+            if loop is None or not loop.is_alive():
+                # no loop to read the sockets: retire it here
+                self._finish_stream(st)
+                break
+        return True
+
+    def _finish_stream(self, st: _HostState) -> None:
         # finish() flips merge-gating state the gather loop reads under
         # the fleet condition: an unlocked flip can be missed by a
         # concurrent _gather_locked and stall the watermark a full poll
         with self.source.cond:
             st.stream.finish()
             self.source.cond.notify_all()
-        return True
+
+    def _do_finishes(self) -> None:
+        """Retire the hosts ``finish_host`` asked for, each after a read
+        of its open connections down to an empty socket."""
+        with self._lock:
+            todo, self._finishing = self._finishing, []
+        for st, done in todo:
+            for conn in list(self._conns):
+                while conn.st is st and not conn.closed and not conn.paused:
+                    if not self._do_read(conn):
+                        break
+            self._finish_stream(st)
+            done.set()
 
     def wait_idle(self, timeout: float | None = 10.0) -> bool:
         """Block until every host that ever connected said BYE and no
@@ -1128,6 +1159,7 @@ class IngestServer:
                         self._flush_wbuf(conn)
                     if mask & selectors.EVENT_READ and not conn.closed:
                         self._do_read(conn)
+            self._do_finishes()
             self._sweep(time.monotonic())
 
     def _do_accept(self) -> None:
@@ -1147,22 +1179,25 @@ class IngestServer:
                 self._open_conns += 1
                 self._conn_socks.add(s)
 
-    def _do_read(self, conn: _Conn) -> None:
+    def _do_read(self, conn: _Conn) -> bool:
+        """One read of ``conn``'s socket into its frames; False when it
+        had nothing to read or closed."""
         try:
             data = conn.sock.recv(1 << 18)
         except (BlockingIOError, InterruptedError):
-            return
+            return False
         except OSError:
             self._close_conn(conn)
-            return
+            return False
         if not data:
             self._close_conn(conn)      # EOF (a torn rbuf tail dies with it)
-            return
+            return False
         conn.rbuf += data
         conn.last_rx = time.monotonic()
         if conn.st is not None:
             conn.st.last_activity = conn.last_rx
         self._parse_rbuf(conn)
+        return True
 
     def _parse_rbuf(self, conn: _Conn) -> None:
         """Dispatch every complete frame buffered on ``conn`` (until a

@@ -67,6 +67,27 @@ def _split_heads(t, n: int):
     return t.reshape(b, s, n, -1)
 
 
+def _merge_heads(t):
+    """(B, S, n, hd) -> (B, S, n * hd).
+
+    aten.view in the backward: where the heads stay whole in the forward
+    (a head count the shard count does not divide, as in
+    :func:`_split_heads`), the gradient may still come back from the
+    output projection sharded over the n * hd columns (torch 2.11, which
+    then cannot split them into heads: arctic's 56 heads on a 16-way
+    ``model`` axis) or partial (2.13, whose score products' backward then
+    places the heads as a ``_StridedShard`` it cannot propagate), so it
+    is placed as the forward's value before the view."""
+    b, s, n, _ = t.shape
+    out = t.reshape(b, s, -1)
+    if isinstance(out, DTensor) and out.requires_grad and not any(
+            isinstance(p, Shard) and p.dim == 2 for p in out.placements):
+        mesh, placements = out.device_mesh, out.placements
+        out.register_hook(lambda g: g if g.placements == placements
+                          else g.redistribute(mesh, placements))
+    return out
+
+
 def _project_q(p, x, cfg: ModelConfig, positions):
     cdt = cfg.compute_dtype
     q = x @ p["wq"].to(cdt)
@@ -173,8 +194,7 @@ def attention(p, x, positions, cfg: ModelConfig, *, window: int | None,
         mask = mask[:, None, None]            # (B, 1, 1, Sq, Sk)
     out = _sdpa(q, k, v, mask, cfg)
     out = constrain(out, "batch", "seq", "heads", "head_dim")
-    b, s, _, _ = out.shape
-    y = out.reshape(b, s, -1) @ p["wo"].to(cfg.compute_dtype)
+    y = _merge_heads(out) @ p["wo"].to(cfg.compute_dtype)
     return constrain(y, "batch", "seq", "embed")
 
 

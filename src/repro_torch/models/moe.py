@@ -51,6 +51,11 @@ def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     return max(4, -(-c // 4) * 4)            # round up to a multiple of 4
 
 
+def _route(x, router):
+    """The router's float32 logits: (B,S,D) -> (B,S,E)."""
+    return x.float() @ router
+
+
 def _dispatch(x, top_e, keep, pos, e: int, cap: int, cdt):
     """(B,S,k) scatter-add of the kept choices -> (B,E,C,D)."""
     b, s, k = top_e.shape
@@ -102,7 +107,11 @@ def moe_ffn(p, x, cfg: ModelConfig):
     cdt = cfg.compute_dtype
     cap = _capacity(cfg, s)
 
-    logits = x.float() @ p["router"]                       # (B,S,E)
+    # router: aten.mm in the weight's backward over the flattened tokens,
+    # whose gradient DTensor (torch 2.13) places as a _StridedShard that
+    # its propagation resolves with a data-dependent op (fake tensors
+    # refuse it), so on a mesh the product runs on each rank's batch rows
+    logits = replicated(_route, batched=(0,))(x, p["router"])  # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)            # (B,S,k)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)

@@ -6,7 +6,9 @@ unsharded step (one fake rank) and against a hand count on a (2, 4) fake
 world; ``lower_cell`` and ``main`` run tiny and full-width cells on fake
 worlds with ``device="cpu"``; the two-point extrapolation is held against
 the reference's, compiled from its source (importing the reference's
-``dryrun.py`` sets ``XLA_FLAGS`` for the process).
+``dryrun.py`` sets ``XLA_FLAGS`` for the process).  Only the tests that
+compare with the reference import it, so the rest of the file runs where
+the JAX package is not installed (the card's machine, torch 2.11).
 """
 import ast
 import dataclasses
@@ -20,8 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
-from repro.launch import roofline as jroofline
 from repro_torch import configs as tconfigs
 from repro_torch.configs import ShapeSpec
 from repro_torch.launch import dryrun as tdryrun
@@ -232,6 +232,48 @@ def test_lower_cell_traces_tiny_cells_on_small_worlds(kind):
         assert r.memory["per_chip_total"] >= r.memory["argument_size"] > 0
 
 
+def _trace_tiny_train(arch, cfg):
+    """One tiny train step traced on a (2, 4) fake world; the
+    ``CellResult``."""
+    shape = ShapeSpec("tiny_train", 16, 4, "train")
+    with tmesh.fake_world(8):
+        mesh = tmesh.make_mesh((2, 4), ("data", "model"), device="cpu")
+        return tdryrun.run_cell(arch, shape.name, "single", cfg=cfg,
+                                shape=shape, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("arch,heads,kv_heads", [
+    ("arctic-480b", 14, 2), ("deepseek-7b", 6, 2), ("deepseek-7b", 6, 6),
+    ("deepseek-7b", 14, 2)])
+def test_head_merge_backward_traces_when_the_model_axis_splits_no_head(
+        arch, heads, kv_heads):
+    """arctic-480b's case (56 heads on a 16-way ``model`` axis), reduced:
+    heads that 4 does not divide stay whole in the forward, and the
+    gradient of their merge before the output projection must be placed
+    so again before the view that splits it into heads.  Before, torch
+    2.11 refused that view in tiny arctic ("Attempted to split the
+    sharded dimension 2", as in the full cell), and 2.13 placed the heads
+    as a ``_StridedShard`` that the score products' backward could not
+    propagate in the others."""
+    cfg = dataclasses.replace(tconfigs.get_tiny(arch), num_layers=1,
+                              num_heads=heads, num_kv_heads=kv_heads,
+                              head_dim=16)
+    r = _trace_tiny_train(arch, cfg)
+    assert r.ok, r.error
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_router_backward_traces_over_flattened_tokens(arch):
+    """grok-1-314b's and arctic-480b's ``train_4k`` cells, reduced: the
+    router's weight gradient is a product over the flattened (batch,
+    seq) tokens, whose gradient torch 2.13's DTensor placed as a
+    ``_StridedShard`` and then resolved with a data-dependent op that
+    fake tensors refuse."""
+    cfg = dataclasses.replace(tconfigs.get_tiny(arch), num_layers=1)
+    r = _trace_tiny_train(arch, cfg)
+    assert r.ok, r.error
+
+
 def _ref_schema() -> tuple:
     """The reference's ``CellResult`` fields and ``memory`` keys, read
     from its source."""
@@ -246,6 +288,7 @@ def _ref_schema() -> tuple:
 
 
 def test_main_writes_the_reference_schema(tmp_path):
+    from repro.launch import roofline as jroofline
     out = tmp_path / "dryrun"
     assert tdryrun.main(["--arch", "deepseek-7b", "--shape", "decode_32k",
                          "--device", "cpu", "--out", str(out)]) == 0
@@ -267,6 +310,9 @@ def test_main_writes_the_reference_schema(tmp_path):
 def test_extrapolation_is_the_reference_lerp(monkeypatch):
     """Two synthetic depth points through both packages'
     ``lower_cell_extrapolated``."""
+    from repro import configs as jconfigs
+    from repro.launch import roofline as jroofline
+
     def point(pkg, g):
         rf = pkg.Roofline(
             arch="qwen3-32b", shape="train_4k", mesh="single",
