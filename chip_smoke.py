@@ -146,15 +146,18 @@ Phases (any failure exits non-zero):
 11. Dry-run: ``repro_torch.launch.dryrun`` on fake ranks whose tensors
    model CUDA ones (shapes, no storage).  (a) gemma3-1b ``train_4k`` and
    deepseek-7b ``decode_32k`` at full width on the 16x16 mesh of a fake
-   world of 256 ranks, through ``run_cell``: each ``ok``, its JSON keys
-   the reference's, its per-chip argument bytes the sum of its leaves'
-   shards by the physical and ZeRO-1 specs; its roofline row and trace
-   seconds printed.  (b) Phase 8's step (gemma3-1b, B = 4, S = 1,024,
-   bf16, remat) traced on a fake world of one rank, then run on the card:
-   the traced FLOPs equal to ``FlopCounterMode`` on the real step and the
-   argument bytes to the real tensors', exactly; printed, the traced peak
-   over ``torch.cuda.max_memory_allocated()`` and the measured step
-   against the roofline's ``t_bound`` (the H100 data sheet's rates).
+   world of 256 ranks, and gemma3-1b ``train_4k`` on the 2x16x16 mesh of
+   512, through ``run_cell``: each ``ok``, its JSON keys the reference's,
+   its per-chip argument bytes the sum of its leaves' shards by the
+   physical and ZeRO-1 specs; its roofline row and trace seconds printed;
+   the multi-pod cell's FLOPs a chip exactly half the single cell's, its
+   peak and bytes a chip no higher.  (b) Phase 8's step (gemma3-1b, B =
+   4, S = 1,024, bf16, remat) traced on a fake world of one rank, then
+   run on the card: the traced FLOPs equal to ``FlopCounterMode`` on the
+   real step and the argument bytes to the real tensors', exactly;
+   printed, the traced peak over ``torch.cuda.max_memory_allocated()``
+   and the measured step against the roofline's ``t_bound`` (the H100
+   data sheet's rates).
 
 12. Families: the archs' paths no other phase runs on the card.  (a)
    Tiny qwen1.5-4b (QKV bias), seamless-m4t-large-v2 (encoder, cross
@@ -3042,7 +3045,12 @@ ROOFLINE_KEYS = ["arch", "shape", "mesh", "flops_per_chip", "bytes_per_chip",
                  "t_memory", "t_collective", "model_flops", "peak_mem_bytes",
                  "n_chips", "bottleneck", "useful_ratio", "roofline_fraction",
                  "t_bound"]
-DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("deepseek-7b", "decode_32k"))
+DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
+                ("deepseek-7b", "decode_32k", "single"),
+                ("gemma3-1b", "train_4k", "multi"))
+# the production meshes' axis sizes (launch.mesh.make_production_mesh)
+MESH_SIZES = {"single": {"data": 16, "model": 16},
+              "multi": {"pod": 2, "data": 16, "model": 16}}
 
 
 def shard_bytes(struct, spec, sizes: dict) -> int:
@@ -3056,18 +3064,17 @@ def shard_bytes(struct, spec, sizes: dict) -> int:
     return struct.numel() * struct.element_size() // count
 
 
-def expected_argument_bytes(arch: str, shape_name: str) -> int:
-    """A cell's per-chip argument bytes on the 16x16 mesh, summed over its
-    leaves' shards from the specs alone (the tracer not involved): the
-    physical specs of the parameters, and ZeRO-1's of both moments plus
-    the int32 step and the batch (train), or the decode state's, tokens'
-    and positions' (decode)."""
+def expected_argument_bytes(arch: str, shape_name: str, sizes: dict) -> int:
+    """A cell's per-chip argument bytes on a mesh of axis ``sizes``,
+    summed over its leaves' shards from the specs alone (the tracer not
+    involved): the physical specs of the parameters, and ZeRO-1's of both
+    moments plus the int32 step and the batch (train), or the decode
+    state's, tokens' and positions' (decode)."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import dryrun, specs
     from repro_torch.models.common import tree_leaves
     from repro_torch.sharding import params as shparams
-    sizes = {"data": 16, "model": 16}
     cfg, shape = configs.get_config(arch), configs.SHAPES[shape_name]
     rules = dryrun.rules_for(arch, shape.kind)
     p_struct = dryrun._param_structs(cfg)
@@ -3108,9 +3115,12 @@ def _spec_leaves(tree) -> list:
 def dryrun_path(ops, dev, card: str) -> dict:
     """Phase 11: the dry-run on fake ranks modelling CUDA tensors.  (a)
     Two full-width cells on the 16x16 mesh of a fake world of 256 ranks
-    through ``dryrun.run_cell``: each ``ok``, its row and trace seconds
-    printed, its JSON keys the reference's, its per-chip argument bytes
-    the sum of its leaves' shards.  (b) Phase 8's step (gemma3-1b at full
+    and gemma3-1b ``train_4k`` on the 2x16x16 mesh of 512, through
+    ``dryrun.run_cell``: each ``ok``, its row and trace seconds printed,
+    its JSON keys the reference's, its per-chip argument bytes the sum of
+    its leaves' shards; the multi-pod cell's FLOPs a chip exactly half the
+    single cell's (its 256 sequences over 32 ranks, not 16) and its peak
+    and bytes a chip no higher.  (b) Phase 8's step (gemma3-1b at full
     width, B = 4, S = 1,024, bf16, remat) traced on a fake world of one
     rank, then run on the card: the traced FLOPs equal to
     ``FlopCounterMode`` on the real step and the argument bytes to the
@@ -3134,29 +3144,49 @@ def dryrun_path(ops, dev, card: str) -> dict:
     t_phase = time.perf_counter()
     ops.reset_launch_counts()
     fields = {f.name for f in dataclasses.fields(roofline.Roofline)}
-    for arch, shape_name in DRYRUN_CELLS:
-        r = dryrun.run_cell(arch, shape_name, "single", device=dev)
-        check(r.ok, f"dry-run {arch} {shape_name}: {r.error}")
+    rows = {}
+    for arch, shape_name, mesh_name in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape_name, mesh_name, device=dev)
+        check(r.ok, f"dry-run {arch} {shape_name} {mesh_name}: {r.error}")
+        rows[arch, shape_name, mesh_name] = r
         row = dataclasses.asdict(r)
         check(list(row) == CELL_KEYS and list(r.memory) == MEMORY_KEYS
               and list(r.roofline) == ROOFLINE_KEYS,
               f"dry-run {arch} {shape_name} keys {list(row)}, "
               f"{list(r.memory)}, {list(r.roofline)}")
-        want = expected_argument_bytes(arch, shape_name)
+        sizes = MESH_SIZES[mesh_name]
+        want = expected_argument_bytes(arch, shape_name, sizes)
         check(r.memory["argument_size"] == want,
-              f"dry-run {arch} {shape_name}: argument bytes "
+              f"dry-run {arch} {shape_name} {mesh_name}: argument bytes "
               f"{r.memory['argument_size']} != {want} from the specs")
         rf = roofline.Roofline(**{k: v for k, v in r.roofline.items()
                                   if k in fields})
         for line in roofline.render_table([rf]).splitlines():
             print(f"[dryrun] {line}")
-        print(f"[dryrun] {arch} {shape_name} single (16x16 fake ranks, "
+        print(f"[dryrun] {arch} {shape_name} {mesh_name} "
+              f"({'x'.join(map(str, sizes.values()))} fake ranks, "
               f"cuda): traced in {r.seconds:.1f} s; argument "
               f"{r.memory['argument_size']:,} B, temp "
               f"{r.memory['temp_size']:,} B, per chip "
               f"{r.memory['per_chip_total'] / 2**30:.2f} GiB; t_bound "
               f"{rf.t_bound * 1e3:.3f} ms ({rf.bottleneck}); collectives "
               f"{ {k: f'{v:.4g}' for k, v in rf.coll_breakdown.items()} }")
+    one, pod = (rows["gemma3-1b", "train_4k", m].roofline
+                for m in ("single", "multi"))
+    check(pod["flops_per_chip"] * 2 == one["flops_per_chip"],
+          f"dry-run gemma3-1b train_4k: multi FLOPs a chip "
+          f"{pod['flops_per_chip']:.6e} are not half the single cell's "
+          f"{one['flops_per_chip']:.6e}")
+    for key in ("peak_mem_bytes", "bytes_per_chip"):
+        check(pod[key] <= one[key],
+              f"dry-run gemma3-1b train_4k: multi {key} {pod[key]:.6e} > "
+              f"single {one[key]:.6e}")
+    print(f"[dryrun] gemma3-1b train_4k multi over single: FLOPs a chip "
+          f"{pod['flops_per_chip'] / one['flops_per_chip']:.4f}, bytes "
+          f"{pod['bytes_per_chip'] / one['bytes_per_chip']:.4f}, peak "
+          f"{pod['peak_mem_bytes'] / one['peak_mem_bytes']:.4f}, "
+          f"collective bytes "
+          f"{pod['coll_bytes_per_chip'] / one['coll_bytes_per_chip']:.4f}")
 
     # (b) the cost model against the card
     cfg = configs.get_config(TRAIN_ARCH)

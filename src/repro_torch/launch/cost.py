@@ -34,7 +34,9 @@ placements and issued the collectives.  What it counts:
 
 DTensor's own sharding propagation runs each operation once more on
 fake tensors of the global shapes, to learn the output's shape; those
-calls are not the step's and are not counted.  Counting starts at
+calls are not the step's and are not counted, nor is the index
+arithmetic of its placements, which runs on real host tensors.
+Counting starts at
 :meth:`CostMode.begin` and stops at :meth:`CostMode.end`; tensors made
 before it (the arguments) are fake all the same.
 """
@@ -46,7 +48,8 @@ import threading
 import weakref
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import (FakeTensorMode,
+                                           unset_fake_temporarily)
 from torch.utils._pytree import tree_flatten, tree_leaves
 from torch.utils.flop_counter import flop_registry
 
@@ -114,15 +117,28 @@ def _group_size(name: str) -> int:
     return _resolve_process_group(name).size()
 
 
-def _in_propagation() -> bool:
-    """True inside DTensor's sharding propagation, which runs an
-    operation on fake tensors of the global shapes to learn its output's
-    metadata (``ShardingPropagator._propagate_tensor_meta*``)."""
+# DTensor's own work on tensors, by (function name prefix, file name
+# suffix): its sharding propagation, which runs an operation on fake
+# tensors of the global shapes to learn its output's metadata, or, for
+# an operation with no rule of its own, its decomposition on meta tensors
+# to learn its strategy (torch 2.13); none of it is the step's
+_PROPAGATION = (("_propagate_tensor_meta", ""),
+                ("propagate_strategy", "_decompositions.py"))
+# its index arithmetic for a _StridedShard (torch 2.13), which splits a
+# host tensor of indices and reads them back: a fake tensor has no values
+_SHARD_ARITHMETIC = (("local_shard_size_and_offset", "placement_types.py"),)
+
+
+def _within(frames: tuple, depth: int) -> bool:
+    """True if one of the ``depth`` frames above the dispatch runs one of
+    ``frames``."""
     f = sys._getframe(2)
-    for _ in range(12):
+    for _ in range(depth):
         if f is None:
             return False
-        if f.f_code.co_name.startswith("_propagate_tensor_meta"):
+        code = f.f_code
+        if any(code.co_name.startswith(name)
+               and code.co_filename.endswith(file) for name, file in frames):
             return True
         f = f.f_back
     return False
@@ -219,6 +235,9 @@ class CostMode(FakeTensorMode):
     # -- dispatch -----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _within(_SHARD_ARITHMETIC, 16):
+            with unset_fake_temporarily():
+                return func(*args, **kwargs)
         depth = getattr(self._local, "depth", 0)
         self._local.depth = depth + 1
         try:
@@ -226,7 +245,7 @@ class CostMode(FakeTensorMode):
         finally:
             self._local.depth = depth
         if (self._counting and depth == 0 and out is not NotImplemented
-                and not _in_propagation()):
+                and not _within(_PROPAGATION, 64)):
             self._count(func, args, kwargs, out)
         return out
 

@@ -48,7 +48,15 @@ def make_mesh(shape, axes, *, device=None) -> DeviceMesh:
         raise ValueError(f"make_mesh: shape {shape} needs "
                          f"{math.prod(shape)} ranks, the world has "
                          f"{dist.get_world_size()}")
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    # a group for every run of adjacent dimensions, so that DTensor
+    # reduces a Partial, or gathers a Shard, over several dimensions in
+    # one collective, as GSPMD does over the replica groups of an axis
+    # product, where it would otherwise issue one per dimension
+    for i in range(len(axes)):
+        for j in range(i + 2, len(axes) + 1):
+            mesh[axes[i:j]]._flatten()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -21,7 +21,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
-from repro_torch.sharding.api import constrain
+from repro_torch.sharding.api import constrain, grad_as_value
 
 NEG_INF = -2.3819763e38
 
@@ -80,11 +80,9 @@ def _merge_heads(t):
     is placed as the forward's value before the view."""
     b, s, n, _ = t.shape
     out = t.reshape(b, s, -1)
-    if isinstance(out, DTensor) and out.requires_grad and not any(
+    if isinstance(out, DTensor) and not any(
             isinstance(p, Shard) and p.dim == 2 for p in out.placements):
-        mesh, placements = out.device_mesh, out.placements
-        out.register_hook(lambda g: g if g.placements == placements
-                          else g.redistribute(mesh, placements))
+        out = grad_as_value(out)
     return out
 
 
@@ -249,7 +247,7 @@ def attention_chunked_local(p, x, positions, cfg: ModelConfig, *,
         return torch.cat([torch.full_like(t[:, :1], fill), t[:, :-1]], dim=1)
     k2 = torch.cat([prev(kc, 0), kc], dim=2)
     v2 = torch.cat([prev(vc, 0), vc], dim=2)
-    pc = positions.reshape(b, nc, w)
+    pc = positions.expand(b, s).reshape(b, nc, w)
     p2 = torch.cat([prev(pc, -10**9), pc], dim=2)
     mask = _band_mask(pc, p2, w, causal=True)[:, :, None, None]  # B,nc,1,1,w,2w
     bn = b * nc
@@ -313,6 +311,16 @@ def _write_shards(cache, slot, new) -> None:
     local[rows, at] = torch.where(mine[keep], new, local[rows, at])
 
 
+def _project_out(out, p, cfg: ModelConfig):
+    """A decode step's heads (B, 1, H, hd) through ``wo``: (B, 1, D), as
+    one (B, H*hd) product.  ``matmul`` of the (B, 1, H*hd) view folds it
+    so only when the view's strides allow, and a DTensor's global strides
+    on a mesh with the batch over two dimensions do not: it then expands
+    ``wo`` over the batch and splits that copy to each rank's rows."""
+    b = out.shape[0]
+    return (out.reshape(b, -1) @ p["wo"].to(cfg.compute_dtype)).unsqueeze(1)
+
+
 def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
                      window: int | None, kv_memory=None) -> tuple:
     """One-token decode step.  ``pos``: i32[B] absolute positions.
@@ -332,7 +340,7 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     if kv_memory is not None:                    # cross attention: no cache
         k, v = kv_memory
         out = _sdpa(q, k, v, None, cfg)
-        y = out.reshape(b, 1, -1) @ p["wo"].to(cfg.compute_dtype)
+        y = _project_out(out, p, cfg)
         return constrain(y, "batch", None, "embed"), cache
     k_new, v_new = _project_kv(p, x, cfg, positions)
     k, v = cache["k"], cache["v"]
@@ -356,6 +364,5 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     # over it, DTensor gathers them for the softmax, and the product with
     # v sums each rank's slots (no rank gathers the cache)
     out = _sdpa(q, k, v, mask, cfg, kv_seq="cache_seq")
-    y = out.reshape(b, 1, -1) @ p["wo"].to(cfg.compute_dtype)
-    y = constrain(y, "batch", None, "embed")
+    y = constrain(_project_out(out, p, cfg), "batch", None, "embed")
     return y, cache

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
-from repro_torch.sharding.api import constrain, replicated
+from repro_torch.sharding.api import constrain, grad_as_value, replicated
 
 
 def associative_scan(combine, elems: tuple, dim: int = 1) -> tuple:
@@ -138,7 +138,9 @@ def rglru_step(p, x, state, cfg: ModelConfig):
     u = torch.einsum("bwr,wr->br", hist, w)[:, None] + p["conv_b"].to(cdt)
     a, gated = _rglru_gates(p, u, cfg)
     h = a[:, 0] * state["h"] + gated[:, 0]
-    out = (h[:, None].to(cdt) * y) @ p["wo"].to(cdt)
+    # one (B, R) product: ``matmul`` of a (B, 1, R) DTensor with the batch
+    # over two mesh dimensions expands ``wo`` over the batch instead
+    out = ((h.to(cdt) * y[:, 0]) @ p["wo"].to(cdt)).unsqueeze(1)
     return out, {"h": h, "conv": hist[:, 1:]}
 
 
@@ -197,9 +199,12 @@ def _rwkv_project(p, x, prev, cfg: ModelConfig):
     v = mix(p["mix_v"]) @ p["wv"].to(cdt)
     g = mix(p["mix_g"]) @ p["wg"].to(cdt)
     dx = mix(p["mix_w"]).float()
+    # aten.tanh_backward of a partial gradient (decay_w2 is sharded over
+    # the width it contracts): placed as the value first, see
+    # grad_as_value
+    lora = grad_as_value(torch.tanh(dx @ p["decay_w1"].float()))
     logw = -torch.exp(p["decay_base"].float()
-                      + torch.tanh(dx @ p["decay_w1"].float())
-                      @ p["decay_w2"].float())               # (B,S,D) ≤ 0
+                      + lora @ p["decay_w2"].float())        # (B,S,D) ≤ 0
     return r, k, v, g, logw
 
 
@@ -223,7 +228,7 @@ def rwkv_tmix(p, x, cfg: ModelConfig, state=None):
                          f"the chunk {c}")
     nh = d // cfg.rwkv_head_dim
     hd = cfg.rwkv_head_dim
-    prev = state["prev"] if state is not None else x.new_zeros((b, 1, d))
+    prev = state["prev"] if state is not None else torch.zeros_like(x[:, :1])
     r, k, v, g, logw = _rwkv_project(p, x, prev, cfg)
     # aten._unsafe_view: torch 2.11's DTensor cannot flatten the chunk
     # einsums' batch and head dimensions when both carry a shard, so on a
@@ -396,5 +401,9 @@ def rwkv_cmix(p, x, cfg: ModelConfig, prev=None):
     k = torch.square(torch.relu(mix(p["mix_k"]) @ p["wk"].to(cdt)))
     k = constrain(k, "batch", "seq", "mlp")
     r = torch.sigmoid(mix(p["mix_r"]) @ p["wr"].to(cdt))
-    out = r * (k @ p["wv"].to(cdt))
+    # aten.sigmoid_backward of a partial gradient: the value product (a
+    # partial sum over ``mlp``'s shards) is reduced before the gate, and
+    # the gradient placed as the gated value, see grad_as_value
+    v = constrain(k @ p["wv"].to(cdt), "batch", "seq", "embed")
+    out = grad_as_value(r * v)
     return constrain(out, "batch", "seq", "embed"), x[:, -1:]

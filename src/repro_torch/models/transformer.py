@@ -121,8 +121,14 @@ def _group_fn(gparams, x, positions, cfg: ModelConfig, *, memory=None,
     return x, aux_sum
 
 
-def _positions(b: int, s: int, device):
-    return torch.arange(s, device=device)[None].expand(b, s)
+def _positions(s: int, device):
+    """The positions 0..s-1 of every row, as one row (1, s) that
+    broadcasts over the batch, as the reference's ``broadcast_to`` costs
+    nothing in XLA.  A (b, s) tensor would be a constant of the whole
+    batch on every rank under a mesh binding, and DTensor would split the
+    rotary tables and masks made from it to each rank's rows, a copy a
+    mesh dimension."""
+    return torch.arange(s, device=device)[None]
 
 
 def encode(params, frontend_feats, cfg: ModelConfig):
@@ -130,8 +136,7 @@ def encode(params, frontend_feats, cfg: ModelConfig):
     cdt = cfg.compute_dtype
     x = frontend_feats.to(cdt) @ params["enc_frontend"].to(cdt)
     x = constrain(x, "batch", "seq", "embed")
-    b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = _positions(x.shape[1], x.device)
     for p in params["encoder"]:
         x, _ = blk.apply_block(p, x, positions, cfg, "encoder")
     return rms_norm(x, params["enc_norm"])
@@ -160,12 +165,12 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
     """
     del scan_layers
     tokens = batch["tokens"]
-    b, s = tokens.shape
+    s = tokens.shape[1]
     x = _embed(params, tokens, cfg)
     memory = memory_positions = None
     if cfg.enc_layers:
         memory = encode(params, batch["frontend"], cfg)
-        memory_positions = _positions(b, memory.shape[1], x.device)
+        memory_positions = _positions(memory.shape[1], x.device)
     elif cfg.frontend_dim:
         cdt = cfg.compute_dtype
         prefix = batch["frontend"].to(cdt) @ params["frontend"].to(cdt)
@@ -173,7 +178,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
         s = x.shape[1]
     positions = batch.get("positions")
     if positions is None:
-        positions = _positions(b, s, x.device)
+        positions = _positions(s, x.device)
 
     aux_total = None
     groups = [(g, None) for g in params["groups"]]
@@ -195,6 +200,11 @@ def forward(params, batch: dict, cfg: ModelConfig, *, scan_layers=False,
     return logits, (aux_total or {})
 
 
+def _target_logits(logits, targets):
+    return torch.take_along_dim(
+        logits, torch.clamp(targets, min=0)[..., None].long(), dim=-1)[..., 0]
+
+
 def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     """Next-token cross entropy (mean over non-pad tokens) + MoE aux loss.
 
@@ -212,10 +222,11 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     mask = (targets >= 0) & (batch.get("mask", torch.ones_like(tokens)) > 0)
     logz = torch.logsumexp(logits, dim=-1)
     # aten.gather over vocab-sharded logits: DTensor's vocab-parallel rule
-    # fails to reduce it, so the vocab dimension is gathered first
-    tgt = torch.take_along_dim(
-        constrain(logits, "batch", "seq", None),
-        torch.clamp(targets, min=0)[..., None].long(), dim=-1)[..., 0]
+    # fails to reduce it, and its backward makes zeros of the logits'
+    # global shape on every rank, then splits them to the rank's rows a
+    # mesh dimension at a time; so each rank gathers its own batch rows
+    # of the logits, the vocab dimension gathered first
+    tgt = replicated(_target_logits, batched=(0, 1))(logits, targets)
     nll = (logz - tgt) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     metrics = {"loss": loss, "tokens": torch.sum(mask)}
@@ -285,5 +296,4 @@ def decode_step(params, tokens, pos, state, cfg: ModelConfig, *,
 def cross_memory(params, cfg: ModelConfig, frontend_feats):
     """Precompute encoder memory K/V inputs for enc-dec decode."""
     mem = encode(params, frontend_feats, cfg)
-    b, s, _ = mem.shape
-    return mem, _positions(b, s, mem.device)
+    return mem, _positions(mem.shape[1], mem.device)

@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.models.common import tree_items, tree_map
+from repro_torch.sharding.api import narrow_to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +92,9 @@ def update(cfg: AdamWConfig, grads, state, params):
         sf = step.float()
         c1 = 1 - cfg.b1 ** sf
         c2 = 1 - cfg.b2 ** sf
-        g = [x.float() for x in flat_g]
+        # each gradient as its moment is placed (ZeRO-1 shards the moments
+        # further over the data axes): this rank's rows, one view each
+        g = [narrow_to(x.float(), m) for x, m in zip(flat_g, flat_m)]
         if cfg.clip_norm > 0:
             torch._foreach_mul_(g, torch.clamp(
                 cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0))
@@ -113,8 +116,8 @@ def update(cfg: AdamWConfig, grads, state, params):
         p32 = [x.float() for x in flat_p]
         mats = [i for i, x in enumerate(flat_p) if x.ndim >= 2]
         if mats:      # decoupled weight decay on matrices only
-            decay = torch._foreach_mul([p32[i] for i in mats],
-                                       cfg.weight_decay)
+            decay = torch._foreach_mul([narrow_to(p32[i], u[i])
+                                        for i in mats], cfg.weight_decay)
             torch._foreach_add_([u[i] for i in mats], decay)
             del decay
         torch._foreach_mul_(u, lr)

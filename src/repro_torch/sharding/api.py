@@ -249,6 +249,64 @@ def constrain(x, *logical):
     return x.redistribute(mesh, placements)
 
 
+def _block(shape, mesh: DeviceMesh, placements) -> tuple:
+    """``(offset, size)`` per tensor dimension of this rank's block of a
+    tensor of global ``shape`` placed as ``placements`` on ``mesh``: the
+    mesh dimensions split in order, each as ``torch.chunk`` does."""
+    coord = mesh.get_coordinate()
+    offset, size = [0] * len(shape), list(shape)
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            d = pl.dim
+            step = -(-size[d] // mesh.size(m))
+            o = min(coord[m] * step, size[d])
+            offset[d] += o
+            size[d] = max(min(step, size[d] - o), 0)
+    return offset, size
+
+
+def narrow_to(x, like):
+    """``x`` placed as the DTensor ``like`` is, where that only shards
+    further what ``x`` shards (``Replicate()`` to ``Shard(d)`` on some
+    mesh dimensions): this rank's block of ``x``'s local tensor, a view,
+    in one step.  ``x.redistribute`` splits one mesh dimension at a time
+    and copies each piece, twice for a dimension over ``("pod", "data")``
+    where the reference slices once.  ``x`` itself unless both are
+    DTensors placed differently; no gradient flows through."""
+    if not (isinstance(x, DTensor) and isinstance(like, DTensor)) \
+            or x.placements == like.placements:
+        return x
+    placements = tuple(like.placements)
+    for src, dst in zip(x.placements, placements):
+        if src != dst and not (isinstance(src, Replicate)
+                               and isinstance(dst, Shard)):
+            raise ValueError(f"narrow_to: {tuple(x.placements)} to "
+                             f"{placements} is not a further split")
+    mesh = x.device_mesh
+    local = x.to_local()
+    start, _ = _block(x.shape, mesh, x.placements)
+    offset, size = _block(x.shape, mesh, placements)
+    for d, (o, o0, n) in enumerate(zip(offset, start, size)):
+        if n != local.shape[d]:
+            local = local.narrow(d, o - o0, n)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def grad_as_value(x):
+    """``x``, with its gradient placed as ``x`` is before it flows back
+    into the operations that made ``x``.  DTensor otherwise lets a
+    partial gradient reach a nonlinear backward and resolves it there as
+    it chooses (torch 2.13 reduce-scatters it over the sequence, whose
+    flattened tokens it then plans as a ``_StridedShard``).  ``x`` itself
+    for a plain tensor or one that needs no gradient."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        mesh, placements = x.device_mesh, x.placements
+        x.register_hook(lambda g: g if g.placements == placements
+                        else g.redistribute(mesh, placements))
+    return x
+
+
 def replicated(fn, batched: tuple = ()):
     """``fn`` run on whole tensors, for an operation DTensor has no rule
     for.  Under a binding, each DTensor argument is redistributed to

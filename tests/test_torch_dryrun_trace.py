@@ -274,6 +274,41 @@ def test_router_backward_traces_over_flattened_tokens(arch):
     assert r.ok, r.error
 
 
+def test_strided_shard_arithmetic_runs_on_host_values():
+    """internvl2-2b's and rwkv6-1.6b's ``train_4k`` cells on the 2x16x16
+    mesh, reduced to their failing product: a weight gradient over the
+    flattened (batch, seq) rows of an activation whose sequence is
+    sharded over ``model``.  Torch 2.13's DTensor places those rows as a
+    ``_StridedShard`` and works out its local sizes by splitting a host
+    tensor of indices and reading it back, which a fake tensor cannot
+    (``aten._local_scalar_dense``).  The tracer runs that arithmetic on
+    real tensors and counts only the step's ops: the rows gathered over
+    ``model``, then one local product.  Torch 2.11's DTensor refuses the
+    flatten instead, so no ``_StridedShard`` arises there."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    b, s, d, f = 8, 4, 16, 12
+    with tmesh.fake_world(8):
+        mesh = tmesh.make_mesh((4, 2), ("data", "model"), device="cpu")
+        try:
+            DTensor.from_local(torch.empty(b // 4, s // 2, d), mesh,
+                               [Shard(0), Shard(1)]).reshape(b * s, d)
+        except RuntimeError as e:
+            pytest.skip(f"this torch's DTensor does not flatten a sharded "
+                        f"sequence: {e}")
+        mode = CostMode()
+        with mode:
+            x = DTensor.from_local(torch.empty(b // 4, s // 2, d), mesh,
+                                   [Shard(0), Shard(1)], run_check=False)
+            w = DTensor.from_local(torch.empty(f, b * s // 4), mesh,
+                                   [Shard(1), Replicate()], run_check=False)
+            mode.begin((x, w))
+            y = w @ x.reshape(b * s, d)
+            trace = mode.end(y)
+    assert tuple(y.placements) == (Partial(), Replicate())
+    assert trace.flops == 2 * f * (b * s // 4) * d
+    assert trace.collectives == [("all-gather", 4 * b * s // 4 * d, 2)]
+
+
 def _ref_schema() -> tuple:
     """The reference's ``CellResult`` fields and ``memory`` keys, read
     from its source."""
