@@ -144,20 +144,24 @@ Phases (any failure exits non-zero):
    on the card.
 
 11. Dry-run: ``repro_torch.launch.dryrun`` on fake ranks whose tensors
-   model CUDA ones (shapes, no storage).  (a) gemma3-1b ``train_4k`` and
-   deepseek-7b ``decode_32k`` at full width on the 16x16 mesh of a fake
-   world of 256 ranks, and gemma3-1b ``train_4k`` on the 2x16x16 mesh of
-   512, through ``run_cell``: each ``ok``, its JSON keys the reference's,
-   its per-chip argument bytes the sum of its leaves' shards by the
-   physical and ZeRO-1 specs; its roofline row and trace seconds printed;
-   the multi-pod cell's FLOPs a chip exactly half the single cell's, its
-   peak and bytes a chip no higher.  (b) Phase 8's step (gemma3-1b, B =
-   4, S = 1,024, bf16, remat) traced on a fake world of one rank, then
-   run on the card: the traced FLOPs equal to ``FlopCounterMode`` on the
-   real step and the argument bytes to the real tensors', exactly;
-   printed, the traced peak over ``torch.cuda.max_memory_allocated()``
-   and the measured step against the roofline's ``t_bound`` (the H100
-   data sheet's rates).
+   model CUDA ones (shapes, no storage).  (a) gemma3-1b ``train_4k``,
+   deepseek-7b ``decode_32k`` and ``prefill_32k``, grok-1-314b
+   ``decode_32k`` and arctic-480b ``train_4k`` at full width on the
+   16x16 mesh of a fake world of 256 ranks, and gemma3-1b ``train_4k`` on
+   the 2x16x16 mesh of 512, through ``run_cell``: each ``ok``, its JSON
+   keys the reference's, its per-chip argument bytes the sum of its
+   leaves' shards by the physical and ZeRO-1 specs; its roofline row and
+   trace seconds printed; the multi-pod cell's FLOPs a chip exactly half
+   the single cell's, its peak and bytes a chip no higher; grok's
+   collective bytes a chip below a tenth, and deepseek-7b
+   ``prefill_32k``'s peak below a quarter, of the step that gathered the
+   experts and the heads whole onto every rank.  (b) Phase 8's step
+   (gemma3-1b, B = 4, S = 1,024, bf16, remat) traced on a fake world of
+   one rank, then run on the card: the traced FLOPs equal to
+   ``FlopCounterMode`` on the real step and the argument bytes to the
+   real tensors', exactly; printed, the traced peak over
+   ``torch.cuda.max_memory_allocated()`` and the measured step against
+   the roofline's ``t_bound`` (the H100 data sheet's rates).
 
 12. Families: the archs' paths no other phase runs on the card.  (a)
    Tiny qwen1.5-4b (QKV bias), seamless-m4t-large-v2 (encoder, cross
@@ -3047,7 +3051,18 @@ ROOFLINE_KEYS = ["arch", "shape", "mesh", "flops_per_chip", "bytes_per_chip",
                  "t_bound"]
 DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
                 ("deepseek-7b", "decode_32k", "single"),
-                ("gemma3-1b", "train_4k", "multi"))
+                ("gemma3-1b", "train_4k", "multi"),
+                ("grok-1-314b", "decode_32k", "single"),
+                ("arctic-480b", "train_4k", "single"),
+                ("deepseek-7b", "prefill_32k", "single"))
+# the sharded step's placements (attention over heads, the experts at
+# their rule placements), against what the step cost when it gathered
+# both whole onto every rank (torch 2.11's trace of those cells): grok's
+# collective bytes a chip below a tenth, deepseek's peak below a quarter
+DRYRUN_GATHERED = {("grok-1-314b", "decode_32k"): ("coll_bytes_per_chip",
+                                                  6.191e11, 10),
+                   ("deepseek-7b", "prefill_32k"): ("peak_mem_bytes",
+                                                   646.70 * 2**30, 4)}
 # the production meshes' axis sizes (launch.mesh.make_production_mesh)
 MESH_SIZES = {"single": {"data": 16, "model": 16},
               "multi": {"pod": 2, "data": 16, "model": 16}}
@@ -3068,8 +3083,8 @@ def expected_argument_bytes(arch: str, shape_name: str, sizes: dict) -> int:
     """A cell's per-chip argument bytes on a mesh of axis ``sizes``,
     summed over its leaves' shards from the specs alone (the tracer not
     involved): the physical specs of the parameters, and ZeRO-1's of both
-    moments plus the int32 step and the batch (train), or the decode
-    state's, tokens' and positions' (decode)."""
+    moments plus the int32 step (train), the batch (train and prefill),
+    or the decode state's, tokens' and positions' (decode)."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import dryrun, specs
@@ -3089,6 +3104,7 @@ def expected_argument_bytes(arch: str, shape_name: str, sizes: dict) -> int:
         f32 = [torch.empty(s.shape, dtype=torch.float32, device="meta")
                for s in tree_leaves(p_struct)]
         n += 2 * total(f32, o_specs) + 4          # mu, nu, the step
+    if shape.kind in ("train", "prefill"):
         b = specs.train_like_specs(cfg, shape)
         n += total(list(b.values()), list(specs.train_like_shardings(
             cfg, b, sizes, rules).values()))
@@ -3114,17 +3130,20 @@ def _spec_leaves(tree) -> list:
 
 def dryrun_path(ops, dev, card: str) -> dict:
     """Phase 11: the dry-run on fake ranks modelling CUDA tensors.  (a)
-    Two full-width cells on the 16x16 mesh of a fake world of 256 ranks
+    Five full-width cells on the 16x16 mesh of a fake world of 256 ranks
     and gemma3-1b ``train_4k`` on the 2x16x16 mesh of 512, through
     ``dryrun.run_cell``: each ``ok``, its row and trace seconds printed,
     its JSON keys the reference's, its per-chip argument bytes the sum of
     its leaves' shards; the multi-pod cell's FLOPs a chip exactly half the
     single cell's (its 256 sequences over 32 ranks, not 16) and its peak
-    and bytes a chip no higher.  (b) Phase 8's step (gemma3-1b at full
-    width, B = 4, S = 1,024, bf16, remat) traced on a fake world of one
-    rank, then run on the card: the traced FLOPs equal to
-    ``FlopCounterMode`` on the real step and the argument bytes to the
-    real tensors', exactly; the traced peak against
+    and bytes a chip no higher; grok-1-314b ``decode_32k``'s collective
+    bytes and deepseek-7b ``prefill_32k``'s peak a chip below a tenth and
+    a quarter of the step that gathered the experts and the heads whole
+    (``DRYRUN_GATHERED``), arctic-480b ``train_4k`` traced.  (b) Phase
+    8's step (gemma3-1b at full width, B = 4, S = 1,024, bf16, remat)
+    traced on a fake world of one rank, then run on the card: the traced
+    FLOPs equal to ``FlopCounterMode`` on the real step and the argument
+    bytes to the real tensors', exactly; the traced peak against
     ``torch.cuda.max_memory_allocated()`` and the measured step against
     the roofline's ``t_bound`` printed.  Every number printed is this
     card's (``card``: its name and power limit); the roofline's seconds
@@ -3146,7 +3165,11 @@ def dryrun_path(ops, dev, card: str) -> dict:
     fields = {f.name for f in dataclasses.fields(roofline.Roofline)}
     rows = {}
     for arch, shape_name, mesh_name in DRYRUN_CELLS:
-        r = dryrun.run_cell(arch, shape_name, mesh_name, device=dev)
+        # as ``python -m repro_torch.launch.dryrun`` traces the cell
+        method = "extrapolate" if mesh_name == "single" \
+            and arch in dryrun.EXTRAPOLATED else "direct"
+        r = dryrun.run_cell(arch, shape_name, mesh_name, method=method,
+                            device=dev)
         check(r.ok, f"dry-run {arch} {shape_name} {mesh_name}: {r.error}")
         rows[arch, shape_name, mesh_name] = r
         row = dataclasses.asdict(r)
@@ -3171,6 +3194,15 @@ def dryrun_path(ops, dev, card: str) -> dict:
               f"{r.memory['per_chip_total'] / 2**30:.2f} GiB; t_bound "
               f"{rf.t_bound * 1e3:.3f} ms ({rf.bottleneck}); collectives "
               f"{ {k: f'{v:.4g}' for k, v in rf.coll_breakdown.items()} }")
+    for (arch, shape_name), (key, gathered, factor) in \
+            DRYRUN_GATHERED.items():
+        got = rows[arch, shape_name, "single"].roofline[key]
+        check(got * factor < gathered,
+              f"dry-run {arch} {shape_name}: {key} {got:.6e} is not below "
+              f"1/{factor} of the gathered step's {gathered:.6e}")
+        print(f"[dryrun] {arch} {shape_name}: {key} {got:.6e}, "
+              f"{gathered / got:.2f}x below the step that gathered heads "
+              f"and experts whole ({gathered:.6e})")
     one, pod = (rows["gemma3-1b", "train_4k", m].roofline
                 for m in ("single", "multi"))
     check(pod["flops_per_chip"] * 2 == one["flops_per_chip"],

@@ -63,6 +63,11 @@ class CellResult:
     roofline: dict | None = None
 
 
+# the archs whose single-mesh cells ``main`` extrapolates from one and two
+# pattern groups (``--method auto``), as the reference does
+EXTRAPOLATED = {"qwen3-32b", "grok-1-314b", "arctic-480b"}
+
+
 def _mesh(name: str, device=None):
     return mesh_lib.make_production_mesh(multi_pod=(name == "multi"),
                                          device=device)
@@ -361,7 +366,6 @@ def main(argv=None) -> int:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     os.makedirs(args.out, exist_ok=True)
 
-    heavy = {"qwen3-32b", "grok-1-314b", "arctic-480b"}
     results = []
     for arch in archs:
         shapes = [args.shape] if args.shape else configs.applicable_shapes(
@@ -371,7 +375,7 @@ def main(argv=None) -> int:
                 if args.method == "auto":
                     if mesh_name == "multi":
                         method, scan = "direct", True
-                    elif arch in heavy:
+                    elif arch in EXTRAPOLATED:
                         method, scan = "extrapolate", False
                     else:
                         method, scan = "direct", False

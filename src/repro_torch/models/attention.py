@@ -16,12 +16,16 @@ cache in place (see its docstring).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
-from repro_torch.sharding.api import constrain, grad_as_value
+from repro_torch.sharding.api import (constrain, current_binding,
+                                      filter_spec, grad_as_value,
+                                      local_block)
 
 NEG_INF = -2.3819763e38
 
@@ -116,12 +120,69 @@ def _project_kv(p, x, cfg: ModelConfig, positions):
     return k, v
 
 
+_Q_AXES = ("batch", "seq", "heads", "head_dim")
+_KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
+_MASK_AXES = ("batch", None, None, None, None)
+
+
 def _sdpa(q, k, v, mask, cfg: ModelConfig, kv_seq: str = "seq"):
     """Grouped scaled dot-product attention.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); mask: broadcastable to
     (B, KV, G, Sq, Sk) or None.  ``kv_seq``: the logical axis of k's and
     v's sequence (``cache_seq`` for a decode cache).
+
+    On a mesh that shards the heads (and not the sequence), each rank
+    computes its own heads, as the reference's constraints place them
+    (:func:`_sdpa_heads`).  Elsewhere the heads are whole: on a mesh, q
+    is placed so, and so are k and v (a no-op but where the rules shard
+    them).
+    """
+    if kv_seq == "seq" and _heads_sharded(q):
+        return local_block(
+            functools.partial(_sdpa_heads, cfg=cfg),
+            (_Q_AXES, _KV_AXES, _KV_AXES, _MASK_AXES), _Q_AXES,
+            offsets=True)(q, k, v, mask)
+    # aten._unsafe_view: DTensor (torch 2.11) cannot flatten the score
+    # einsums' batch and head dimensions when both carry a shard, so here
+    # (over a decode cache sharded on its sequence) q's heads are
+    # gathered; passed on unnamed, so that no placed copy outlives its use
+    return _sdpa_math(constrain(q, "batch", "seq", None, "head_dim"),
+                      constrain(k, "batch", kv_seq, None, "head_dim"),
+                      constrain(v, "batch", kv_seq, None, "head_dim"),
+                      mask, cfg)
+
+
+def _heads_sharded(q) -> bool:
+    """True where the active binding shards q's heads and not its
+    sequence (a head count the shard count does not divide stays whole,
+    as the reference's filtered constraint leaves it)."""
+    b = current_binding()
+    if b is None or not isinstance(q, DTensor):
+        return False
+    mesh, rules = b
+    spec = filter_spec(tuple(q.shape), rules.spec(*_Q_AXES), mesh)
+    return spec[2] is not None and spec[1] is None
+
+
+def _sdpa_heads(q, k, v, mask, *, cfg: ModelConfig, offsets):
+    """One rank's block of :func:`_sdpa`: its q heads against the kv heads
+    of their groups, taken from the rank's k and v (whole in heads unless
+    the rules shard them)."""
+    h0, hl = offsets[0][2], q.shape[2]
+    g = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+    k = k[:, :, lo - offsets[1][2]:hi - offsets[1][2]]
+    v = v[:, :, lo - offsets[2][2]:hi - offsets[2][2]]
+    if hi - lo > 1 and (h0 % g or hl % g):
+        # the heads do not split into whole groups: a kv head each
+        k = k.repeat_interleave(g, dim=2)[:, :, h0 - lo * g:][:, :, :hl]
+        v = v.repeat_interleave(g, dim=2)[:, :, h0 - lo * g:][:, :, :hl]
+    return _sdpa_math(q, k, v, mask, cfg)
+
+
+def _sdpa_math(q, k, v, mask, cfg: ModelConfig):
+    """:func:`_sdpa` on the tensors as they are.
 
     q is scaled in its own dtype, then q and k go to float32 for the score
     product (the reference's ``preferred_element_type=float32``); the
@@ -133,12 +194,6 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig, kv_seq: str = "seq"):
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
-    # aten._unsafe_view: DTensor (torch 2.11) cannot flatten the score
-    # einsums' batch and head dimensions when both carry a shard, so on a
-    # mesh the heads are gathered first (a no-op elsewhere)
-    q = constrain(q, "batch", "seq", None, "head_dim")
-    k = constrain(k, "batch", kv_seq, None, "head_dim")
-    v = constrain(v, "batch", kv_seq, None, "head_dim")
     if cfg.opt_level >= 1:
         if g > 1:
             k = torch.repeat_interleave(k, g, dim=2)

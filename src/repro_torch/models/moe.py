@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.sharding.api import constrain, replicated
+from repro_torch.sharding.api import constrain, local_block, replicated
 
 
 def init_moe(gen, cfg: ModelConfig, *, device=None) -> dict:
@@ -74,10 +74,18 @@ def _experts(expert_in, wg, wu, wd):
     """The experts' SwiGLU: (B,E,C,D) -> (B,E,C,D)."""
     h = F.silu(torch.einsum("becd,edf->becf", expert_in, wg)) \
         * torch.einsum("becd,edf->becf", expert_in, wu)
-    # as in the reference; on a mesh this runs unbound (replicated), and
-    # the constraint passes h through
+    # as in the reference; on a mesh this runs on each rank's block,
+    # unbound, and the constraint passes h through
     h = constrain(h, "batch", "experts_act", None, "expert_mlp")
     return torch.einsum("becf,efd->becd", h, wd)
+
+
+# the expert FFN's blocks: the reference's constraints on the
+# activations, and the weights as h's experts and hidden place them
+_EXPERT_ACT = ("batch", "experts_act", None, "embed")
+_EXPERT_AXES = (_EXPERT_ACT, ("experts_act", None, "expert_mlp"),
+                ("experts_act", None, "expert_mlp"),
+                ("experts_act", "expert_mlp", None))
 
 
 def _combine(expert_out, top_e, keep, pos, top_p, cdt):
@@ -133,9 +141,12 @@ def moe_ffn(p, x, cfg: ModelConfig):
     expert_in = constrain(expert_in, "batch", "experts_act", None, "embed")
 
     # expert FFN (SwiGLU): aten.view in the expert einsums' backward fails
-    # on DTensor's sharding of their grads, so on a mesh they run on each
-    # rank's batch rows with every expert's weights whole
-    expert_out = replicated(_experts, batched=(0,))(
+    # on DTensor's sharding of their grads, so on a mesh each rank runs its
+    # block: its rows of its experts (those ``experts_act`` binds), at its
+    # slice of the hidden (``expert_mlp``, summed over after); each weight
+    # cast where it lies, then moved to the block
+    expert_out = local_block(_experts, _EXPERT_AXES, _EXPERT_ACT,
+                             partial=("expert_mlp",))(
         expert_in, p["we_gate"].to(cdt), p["we_up"].to(cdt),
         p["we_down"].to(cdt))
     expert_out = constrain(expert_out, "batch", "experts_act", None, "embed")

@@ -20,9 +20,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -249,11 +251,12 @@ def constrain(x, *logical):
     return x.redistribute(mesh, placements)
 
 
-def _block(shape, mesh: DeviceMesh, placements) -> tuple:
-    """``(offset, size)`` per tensor dimension of this rank's block of a
-    tensor of global ``shape`` placed as ``placements`` on ``mesh``: the
-    mesh dimensions split in order, each as ``torch.chunk`` does."""
-    coord = mesh.get_coordinate()
+def _block(shape, mesh: DeviceMesh, placements, coord=None) -> tuple:
+    """``(offset, size)`` per tensor dimension of the block of a tensor of
+    global ``shape`` placed as ``placements`` on ``mesh`` that the rank at
+    ``coord`` holds (this rank when None): the mesh dimensions split in
+    order, each as ``torch.chunk`` does."""
+    coord = mesh.get_coordinate() if coord is None else coord
     offset, size = [0] * len(shape), list(shape)
     for m, pl in enumerate(placements):
         if isinstance(pl, Shard):
@@ -349,6 +352,165 @@ def replicated(fn, batched: tuple = ()):
             return DTensor.from_local(t, mesh, placed, run_check=False) \
                 if isinstance(t, torch.Tensor) else t
         return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+    return run
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes of one PartitionSpec entry."""
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def _regroup(x, placements, grad_placements) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` placed as ``placements``, a
+    plain tensor, moved by one all-to-all over the mesh's ranks: each rank
+    sends every other the part of its shard that the other's block holds
+    (along a mesh dimension ``x`` is replicated on, only to the ranks of
+    its own index there), so no rank holds more than its old and new
+    blocks.  DTensor's redistribute instead gathers a dimension whole
+    before it splits it anew (an expert table sharded over ``data`` to one
+    sharded over ``model``).  The gradient flows back by the reverse
+    all-to-all to ``x``'s shards, placed as ``grad_placements``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed import get_process_group_ranks
+    from torch.distributed._functional_collectives import \
+        all_to_all_single_autograd
+    mesh, src = x.device_mesh, tuple(x.placements)
+    shape, dims = tuple(x.shape), tuple(mesh.shape)
+    # the mesh's rank table is a real tensor, which a fake mode (the
+    # dry-run's) would refuse to read
+    with unset_fake_temporarily():
+        ranks = mesh.mesh.numpy()
+    coords = {int(ranks[c]): c for c in np.ndindex(*dims)}
+    me = tuple(mesh.get_coordinate())
+    rep = [m for m, pl in enumerate(src) if not isinstance(pl, Shard)]
+
+    def overlap(a, b):
+        lo = [max(p, q) for p, q in zip(a[0], b[0])]
+        hi = [min(p + n, q + k) for p, n, q, k in zip(*a, *b)]
+        return None if any(h <= o for o, h in zip(lo, hi)) else (lo, hi)
+
+    local = x.to_local(grad_placements=grad_placements)
+    mine, want = _block(shape, mesh, src), _block(shape, mesh, placements)
+    group = (mesh._flatten() if mesh.ndim > 1 else mesh).get_group()
+    sends, ins, outs, boxes = [], [], [], []
+    for r in get_process_group_ranks(group):
+        c = coords[r]
+        peer = all(c[m] == me[m] for m in rep)
+        box = overlap(mine, _block(shape, mesh, placements, c)) \
+            if peer else None
+        if box is not None:
+            piece = local
+            for d, (lo, hi) in enumerate(zip(*box)):
+                piece = piece.narrow(d, lo - mine[0][d], hi - lo)
+            sends.append(piece.reshape(-1))
+        ins.append(0 if box is None else sends[-1].numel())
+        box = overlap(_block(shape, mesh, src, c), want) if peer else None
+        boxes.append(box)
+        outs.append(0 if box is None else
+                    math.prod(h - lo for lo, h in zip(*box)))
+    buf = torch.cat(sends) if sends else local.new_empty(0)
+    got = all_to_all_single_autograd(buf, outs, ins, group)
+    out = local.new_empty(want[1])
+    for piece, box in zip(torch.split(got, outs), boxes):
+        if box is not None:
+            out[tuple(slice(lo - o, h - o) for lo, h, o in
+                      zip(*box, want[0]))] = piece.reshape(
+                [h - lo for lo, h in zip(*box)])
+    return out
+
+
+def local_block(fn, in_axes: tuple, out_axes: tuple, *,
+                partial: tuple = (), offsets: bool = False):
+    """``fn`` run on each rank's block, as ``shard_map`` runs it.  Under a
+    binding, each tensor argument is placed at the placements of its
+    logical axes in ``in_axes`` (one tuple an argument, None to pass it as
+    it is), filtered as :func:`constrain` filters them (first use wins; an
+    axis that does not divide is dropped), and ``fn`` gets the local
+    tensors, with no mesh bound; a plain tensor counts as replicated.
+    Its output is a DTensor whose dimensions are sharded over the mesh
+    axes that the logical names in ``out_axes`` resolved to in the
+    arguments, and ``Partial()`` over those that the names in ``partial``
+    resolved to (``fn`` sums over them).  An argument replicated along a
+    mesh dimension that some argument is sharded on gets a partial
+    gradient there.  With ``offsets``, ``fn`` also gets ``offsets=``, each
+    argument's block's global offset per dimension (None for a
+    non-tensor).  Outside a binding, or with no DTensor argument, it is
+    ``fn`` itself, its offsets 0.
+
+    An argument is moved by DTensor's redistribute where that only
+    gathers, only splits or reduces, else by one all-to-all
+    (:func:`_regroup`)."""
+    def run(*args):
+        b = current_binding()
+        if b is None or not any(isinstance(a, DTensor) for a in args):
+            if offsets:
+                return fn(*args, offsets=tuple(
+                    (0,) * a.ndim if isinstance(a, torch.Tensor) else None
+                    for a in args))
+            return fn(*args)
+        mesh, rules = b
+        resolved: dict = {}
+        targets = []
+        for a, axes in zip(args, in_axes):
+            if axes is None or not isinstance(a, torch.Tensor):
+                targets.append(None)
+                continue
+            spec = filter_spec(tuple(a.shape), rules.spec(*axes), mesh)
+            for name, entry in zip(axes, spec):
+                if name is not None and entry is not None:
+                    resolved.setdefault(name, entry)
+            targets.append(to_placements(spec, mesh))
+        varies = {m for pl in targets if pl is not None
+                  for m, p in enumerate(pl) if isinstance(p, Shard)}
+        local, offs = [], []
+        for a, pl in zip(args, targets):
+            if pl is None:
+                local.append(a)
+                offs.append(None)
+                continue
+            start, size = _block(a.shape, mesh, pl)
+            offs.append(tuple(start))
+            if not isinstance(a, DTensor):
+                for d, (o, n) in enumerate(zip(start, size)):
+                    if n != a.shape[d]:
+                        a = a.narrow(d, o, n)
+                local.append(a)
+                continue
+            src = tuple(a.placements)
+            grad = tuple(Partial() if isinstance(p, Replicate)
+                         and m in varies else p for m, p in enumerate(pl))
+            if src == pl:
+                local.append(a.to_local(grad_placements=grad))
+            elif any(isinstance(s, Partial) for s in src) or all(
+                    s == t or isinstance(t, Replicate)
+                    for s, t in zip(src, pl)) or all(
+                    s == t or isinstance(s, Replicate)
+                    for s, t in zip(src, pl)):
+                local.append(a.redistribute(mesh, pl).to_local(
+                    grad_placements=grad))
+            else:
+                local.append(_regroup(a, pl, tuple(
+                    Partial() if isinstance(p, Replicate) and m in varies
+                    else p for m, p in enumerate(src))))
+        with use_mesh(None):
+            out = fn(*local, offsets=tuple(offs)) if offsets \
+                else fn(*local)
+        used: set = set()
+        entries = []
+        for name in out_axes:
+            axes = _axes(resolved.get(name))
+            entries.append(None if not axes or used & set(axes)
+                           else resolved[name])
+            used.update(_axes(entries[-1]))
+        placements = list(to_placements(P(*entries), mesh))
+        names = list(mesh.mesh_dim_names)
+        for name in partial:
+            for axis in _axes(resolved.get(name)):
+                m = names.index(axis)
+                if axis not in used and mesh.size(m) > 1:
+                    placements[m] = Partial()
+        return DTensor.from_local(out, mesh, placements, run_check=False)
     return run
 
 

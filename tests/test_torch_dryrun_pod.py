@@ -56,10 +56,11 @@ DTENSOR_POD_OPS = {
 }
 
 
-def trace_world(arch: str, kind: str, world: str, monkeypatch) -> dict:
+def trace_world(arch: str, kind: str, world, monkeypatch) -> dict:
     """The tiny cell of ``arch`` (one pattern group) traced on a fake
-    world of eight ranks: its ``CostTrace`` and, by op, the calls and
-    bytes the tracer counted (a collective by its op and group size)."""
+    world of eight ranks (``world``: a key of ``WORLDS``, or its
+    ``(dims, axes)``): its ``CostTrace`` and, by op, the calls and bytes
+    the tracer counted (a collective by its op and group size)."""
     cfg = tconfigs.get_tiny(arch)
     cfg = dataclasses.replace(cfg, num_layers=cfg.group_size)
     shape = ShapeSpec(f"tiny_{kind}", 16, 8, kind)
@@ -78,7 +79,7 @@ def trace_world(arch: str, kind: str, world: str, monkeypatch) -> dict:
         ops[key][1] += moved
 
     monkeypatch.setattr(tcost.CostMode, "_count", counted)
-    dims, axes = WORLDS[world]
+    dims, axes = WORLDS[world] if isinstance(world, str) else world
     with tmesh.fake_world(8):
         mesh = tmesh.make_mesh(dims, axes, device="cpu")
         trace, _, _ = tdryrun.lower_cell(
