@@ -155,7 +155,10 @@ Phases (any failure exits non-zero):
    the single cell's, its peak and bytes a chip no higher; grok's
    collective bytes a chip below a tenth, and deepseek-7b
    ``prefill_32k``'s peak below a quarter, of the step that gathered the
-   experts and the heads whole onto every rank.  (b) Phase 8's step
+   experts and the heads whole onto every rank; gemma3-1b ``train_4k``'s
+   peak below 1/1.3 of the step that gathered the logits' vocab for the
+   loss, and deepseek-7b ``decode_32k``'s collective bytes below a
+   twentieth of the step that gathered decode's scores.  (b) Phase 8's step
    (gemma3-1b, B = 4, S = 1,024, bf16, remat) traced on a fake world of
    one rank, then run on the card: the traced FLOPs equal to
    ``FlopCounterMode`` on the real step and the argument bytes to the
@@ -2603,19 +2606,21 @@ def fd_dense(dev) -> np.ndarray:
 
 
 class _TimedAllReduce:
-    """Stands in for ``torch.distributed`` in ``decode_sharded``: each
-    all-reduce is timed on the host between two synchronisations."""
+    """Stands in for the flash-decode combine's all-reduce
+    (``models.attention._all_reduce``): each is timed on the host between
+    two synchronisations."""
 
-    def __init__(self, dist):
-        self.dist, self.ReduceOp, self.seconds = dist, dist.ReduceOp, 0.0
+    def __init__(self, all_reduce):
+        self.all_reduce, self.seconds = all_reduce, 0.0
 
-    def all_reduce(self, t, **kw):
+    def __call__(self, t, op, group):
         import torch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.dist.all_reduce(t, **kw)
+        out = self.all_reduce(t, op, group)
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
+        return out
 
 
 def mr_full() -> dict:
@@ -2627,6 +2632,7 @@ def mr_full() -> dict:
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
     from repro_torch.models.common import ModelConfig
     from repro_torch.serve import decode_sharded
     w, r = dist.get_world_size(), dist.get_rank()
@@ -2656,12 +2662,12 @@ def mr_full() -> dict:
     for _ in range(2):
         f(qb, kb, vb, dvalid)
     ms = timed()
-    shim = _TimedAllReduce(dist)
-    decode_sharded.dist = shim
+    shim = _TimedAllReduce(attention._all_reduce)
+    attention._all_reduce = shim
     try:
         split_ms = timed()
     finally:
-        decode_sharded.dist = dist
+        attention._all_reduce = shim.all_reduce
     allreduce_ms = shim.seconds / FD_CALLS * 1e3
     return {"out32": out32, "ms": ms, "split_ms": split_ms,
             "allreduce_ms": allreduce_ms,
@@ -3055,14 +3061,22 @@ DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
                 ("grok-1-314b", "decode_32k", "single"),
                 ("arctic-480b", "train_4k", "single"),
                 ("deepseek-7b", "prefill_32k", "single"))
-# the sharded step's placements (attention over heads, the experts at
-# their rule placements), against what the step cost when it gathered
-# both whole onto every rank (torch 2.11's trace of those cells): grok's
-# collective bytes a chip below a tenth, deepseek's peak below a quarter
-DRYRUN_GATHERED = {("grok-1-314b", "decode_32k"): ("coll_bytes_per_chip",
-                                                  6.191e11, 10),
-                   ("deepseek-7b", "prefill_32k"): ("peak_mem_bytes",
-                                                   646.70 * 2**30, 4)}
+# the sharded step's placements against what the step cost when it
+# gathered onto every rank (torch 2.11's trace of those cells): attention
+# over heads and the experts at their rule placements (grok's collective
+# bytes a chip below a tenth, deepseek's prefill peak below a quarter),
+# the loss vocab-parallel (gemma3-1b's train peak below 1/1.3) and
+# decode's flash-decode combine (deepseek's decode collective bytes below
+# a twentieth)
+DRYRUN_GATHERED = {
+    ("grok-1-314b", "decode_32k"): ("coll_bytes_per_chip", 6.191e11, 10,
+                                    "gathered heads and experts whole"),
+    ("deepseek-7b", "prefill_32k"): ("peak_mem_bytes", 646.70 * 2**30, 4,
+                                     "gathered heads and experts whole"),
+    ("gemma3-1b", "train_4k"): ("peak_mem_bytes", 197.71 * 2**30, 1.3,
+                                "gathered the logits' vocab"),
+    ("deepseek-7b", "decode_32k"): ("coll_bytes_per_chip", 9.601e8, 20,
+                                    "gathered decode's scores")}
 # the production meshes' axis sizes (launch.mesh.make_production_mesh)
 MESH_SIZES = {"single": {"data": 16, "model": 16},
               "multi": {"pod": 2, "data": 16, "model": 16}}
@@ -3138,7 +3152,10 @@ def dryrun_path(ops, dev, card: str) -> dict:
     single cell's (its 256 sequences over 32 ranks, not 16) and its peak
     and bytes a chip no higher; grok-1-314b ``decode_32k``'s collective
     bytes and deepseek-7b ``prefill_32k``'s peak a chip below a tenth and
-    a quarter of the step that gathered the experts and the heads whole
+    a quarter of the step that gathered the experts and the heads whole,
+    gemma3-1b ``train_4k``'s peak below 1/1.3 of the step that gathered
+    the logits' vocab and deepseek-7b ``decode_32k``'s collective bytes
+    below a twentieth of the step that gathered decode's scores
     (``DRYRUN_GATHERED``), arctic-480b ``train_4k`` traced.  (b) Phase
     8's step (gemma3-1b at full width, B = 4, S = 1,024, bf16, remat)
     traced on a fake world of one rank, then run on the card: the traced
@@ -3194,15 +3211,15 @@ def dryrun_path(ops, dev, card: str) -> dict:
               f"{r.memory['per_chip_total'] / 2**30:.2f} GiB; t_bound "
               f"{rf.t_bound * 1e3:.3f} ms ({rf.bottleneck}); collectives "
               f"{ {k: f'{v:.4g}' for k, v in rf.coll_breakdown.items()} }")
-    for (arch, shape_name), (key, gathered, factor) in \
+    for (arch, shape_name), (key, gathered, factor, what) in \
             DRYRUN_GATHERED.items():
         got = rows[arch, shape_name, "single"].roofline[key]
         check(got * factor < gathered,
               f"dry-run {arch} {shape_name}: {key} {got:.6e} is not below "
               f"1/{factor} of the gathered step's {gathered:.6e}")
         print(f"[dryrun] {arch} {shape_name}: {key} {got:.6e}, "
-              f"{gathered / got:.2f}x below the step that gathered heads "
-              f"and experts whole ({gathered:.6e})")
+              f"{gathered / got:.2f}x below the step that {what} "
+              f"({gathered:.6e}) ({card})")
     one, pod = (rows["gemma3-1b", "train_4k", m].roofline
                 for m in ("single", "multi"))
     check(pod["flops_per_chip"] * 2 == one["flops_per_chip"],

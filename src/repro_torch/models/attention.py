@@ -17,15 +17,16 @@ cache in place (see its docstring).
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
-from repro_torch.sharding.api import (constrain, current_binding,
-                                      filter_spec, grad_as_value,
-                                      local_block)
+from repro_torch.sharding.api import (axis_sizes, constrain,
+                                      current_binding, filter_spec,
+                                      grad_as_value, local_block)
 
 NEG_INF = -2.3819763e38
 
@@ -134,7 +135,11 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig, kv_seq: str = "seq"):
 
     On a mesh that shards the heads (and not the sequence), each rank
     computes its own heads, as the reference's constraints place them
-    (:func:`_sdpa_heads`).  Elsewhere the heads are whole: on a mesh, q
+    (:func:`_sdpa_heads`).  On a mesh that shards a decode cache's
+    sequence, each rank attends over its slice of the cache and the
+    slices are combined as flash-decode combines them
+    (:func:`_sdpa_cache_slice`), where GSPMD splits the reference's
+    softmax reductions so.  Elsewhere the heads are whole: on a mesh, q
     is placed so, and so are k and v (a no-op but where the rules shard
     them).
     """
@@ -143,14 +148,45 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig, kv_seq: str = "seq"):
             functools.partial(_sdpa_heads, cfg=cfg),
             (_Q_AXES, _KV_AXES, _KV_AXES, _MASK_AXES), _Q_AXES,
             offsets=True)(q, k, v, mask)
+    group = _group(k, _CACHE_AXES, 1) if kv_seq == "cache_seq" else None
+    if group is not None:
+        return local_block(
+            functools.partial(_sdpa_cache_slice, cfg=cfg, group=group,
+                              heads=_group(q, _Q_AXES, 2)),
+            (_Q_AXES, _CACHE_AXES, _CACHE_AXES, _MASK_AXES),
+            _Q_WHOLE_AXES, offsets=True)(q, k, v, mask)
     # aten._unsafe_view: DTensor (torch 2.11) cannot flatten the score
-    # einsums' batch and head dimensions when both carry a shard, so here
-    # (over a decode cache sharded on its sequence) q's heads are
-    # gathered; passed on unnamed, so that no placed copy outlives its use
+    # einsums' batch and head dimensions when both carry a shard, so q's
+    # heads are gathered; passed on unnamed, so that no placed copy
+    # outlives its use
     return _sdpa_math(constrain(q, "batch", "seq", None, "head_dim"),
                       constrain(k, "batch", kv_seq, None, "head_dim"),
                       constrain(v, "batch", kv_seq, None, "head_dim"),
                       mask, cfg)
+
+
+_Q_WHOLE_AXES = ("batch", "seq", None, "head_dim")
+_CACHE_AXES = ("batch", "cache_seq", "kv_heads", "head_dim")
+
+
+def _group(t, axes: tuple, dim: int):
+    """The process group of the mesh axes that the active binding shards
+    the DTensor ``t``'s dimension ``dim`` over, ``t`` named by the logical
+    ``axes`` (None where it is not a DTensor, or the axes hold one
+    rank)."""
+    b = current_binding()
+    if b is None or not isinstance(t, DTensor):
+        return None
+    mesh, rules = b
+    entry = filter_spec(tuple(t.shape), rules.spec(*axes), mesh)[dim]
+    names = () if entry is None else \
+        entry if isinstance(entry, tuple) else (entry,)
+    if math.prod(axis_sizes(mesh)[a] for a in names) < 2:
+        return None
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    # make_mesh gives every run of adjacent dimensions its group
+    return mesh[names]._flatten().get_group()
 
 
 def _heads_sharded(q) -> bool:
@@ -191,6 +227,18 @@ def _sdpa_math(q, k, v, mask, cfg: ModelConfig):
     opt_level>=1 switches to the repeated-KV layout: scores carry the full
     H head dim.  The repeat costs O(S·H·hd) extra KV bytes.
     """
+    scores, v = _scores(q, k, v, mask, cfg)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if scores.ndim == 4:
+        return torch.einsum("bhqs,bshd->bqhd", probs, v)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(q.shape)
+
+
+def _scores(q, k, v, mask, cfg: ModelConfig):
+    """The masked float32 scores of :func:`_sdpa_math`, (B, H, Sq, Sk) at
+    ``opt_level >= 1`` (k and v repeated to H heads) or (B, KV, G, Sq,
+    Sk), and the v they meet."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -208,16 +256,92 @@ def _sdpa_math(q, k, v, mask, cfg: ModelConfig):
             else:
                 m = mask.reshape(mask.shape[0], 1, *mask.shape[-2:])
             scores = torch.where(m, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        return torch.einsum("bhqs,bshd->bqhd", probs, v)
+        return scores, v
     q = q.reshape(b, sq, kv, g, hd) * (hd ** -0.5)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
     scores = softcap(scores, cfg.logits_softcap)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return scores, v
+
+
+def _sdpa_cache_slice(q, k, v, mask, *, cfg: ModelConfig, group, heads,
+                      offsets):
+    """One rank's part of :func:`_sdpa` over a cache whose sequence is
+    sharded over ``group``: q, its heads gathered over ``heads`` (None:
+    whole already), against the rank's slice of k and v and its slots of
+    the mask, the scores as :func:`_sdpa_math` makes them (softcap, the
+    mask, both layouts), and the slices' softmaxes combined by
+    :func:`flash_combine`.  Returns (B, Sq, H, hd), the same on every rank
+    of ``group``.  The gathered q and the mask's slots are made here, and
+    the gathered q is passed on unnamed, so that neither outlives its use
+    (a rank's placed arguments live until the block returns).  No
+    gradient crosses the collectives: this serves decode, which runs
+    without one."""
+    b, sq, _, hd = q.shape
+    dtype, shape = q.dtype, (b, sq, cfg.num_heads, hd)
+    if mask is not None:
+        s0 = offsets[1][1]
+        mask = mask[..., s0:s0 + k.shape[1]]
+    scores, v = _scores(q if heads is None else _all_gather(q, 2, heads),
+                        k, v, mask, cfg)
+    m, l, w = flash_partials(scores)
+    if scores.ndim == 4:
+        o = torch.einsum("bhqs,bshd->bhqd", w.to(dtype), v).float()
+        return flash_combine(m, l, o, group).to(dtype).transpose(1, 2)
+    o = torch.einsum("bkgqs,bskh->bkgqh", w.to(dtype), v).float()
+    out = flash_combine(m, l, o, group).to(dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(shape)
+
+
+def flash_partials(scores):
+    """A slice's part of the softmax over the last dimension of the
+    float32 ``scores``: its max ``m``, its sum of exps ``l`` (both with
+    that dimension kept, of size 1) and the weights ``exp(scores - m)``.
+    A masked score (-inf, or the finite ``NEG_INF``) weighs 0 beside any
+    unmasked one.  A wholly masked slice's weights never reach the result
+    (:func:`flash_combine` scales them by 0), and where its max is -inf
+    they are taken against 0, so that -inf gives no NaN."""
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    w = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0))
+    return m, torch.sum(w, dim=-1, keepdim=True), w
+
+
+def flash_combine(m, l, o, group):
+    """The softmax-weighted sum over the slices of ``group``'s ranks from
+    each rank's :func:`flash_partials` ``m`` and ``l`` and its weighted
+    sum ``o`` of the values (all float32), by flash-decode's two-pass
+    rule: the all-reduced max ``M``, then the all-reduced sums of
+    ``exp(m - M) * l`` and ``exp(m - M) * o``, then their quotient.  A
+    slice whose max is -inf scales by 0; where every score of a row is
+    -inf the row is 0.  Three functional all-reduces (the collectives
+    DTensor issues, which the dry-run's tracer counts), the same result
+    on every rank."""
+    top = _all_reduce(m, "max", group)
+    scale = torch.exp(torch.where(torch.isfinite(m), m - top, -torch.inf))
+    l = _all_reduce(l * scale, "sum", group)
+    o = _all_reduce(o * scale, "sum", group)
+    return o / torch.clamp(l, min=1e-30)
+
+
+def _all_gather(t, dim: int, group):
+    """``t`` gathered along ``dim`` over ``group`` by ``torch.distributed``'s
+    functional collective (stacked on the first dimension, then put in
+    place), waited on."""
+    ops = torch.ops._c10d_functional
+    n = group.size()
+    out = ops.wait_tensor(ops.all_gather_into_tensor(t.contiguous(), n,
+                                                     group.group_name))
+    return torch.cat(torch.chunk(out, n, dim=0), dim=dim)
+
+
+def _all_reduce(t, op: str, group):
+    """``t`` all-reduced by ``op`` ("max" or "sum") over ``group``,
+    through ``torch.distributed``'s functional collective, waited on."""
+    from torch.distributed._functional_collectives import (
+        AsyncCollectiveTensor, all_reduce)
+    out = all_reduce(t, op, group)
+    return out.wait() if isinstance(out, AsyncCollectiveTensor) else out
 
 
 def _band_mask(q_pos, k_pos, window: int | None, causal: bool):
@@ -415,9 +539,9 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     if window is not None:
         written &= slots > pos[:, None] - window
     mask = written[:, None, None, None, :]       # (B,1,1,1,L)
-    # the cache keeps its sequence shard: the scores come out sharded
-    # over it, DTensor gathers them for the softmax, and the product with
-    # v sums each rank's slots (no rank gathers the cache)
+    # the cache keeps its sequence shard: each rank attends over its
+    # slots and the slices' softmaxes are combined (no rank gathers the
+    # cache or the scores)
     out = _sdpa(q, k, v, mask, cfg, kv_seq="cache_seq")
     y = constrain(_project_out(out, p, cfg), "batch", None, "embed")
     return y, cache

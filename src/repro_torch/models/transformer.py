@@ -20,14 +20,14 @@ from typing import Any
 
 import torch
 import torch.utils.checkpoint
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import device as device_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        softcap)
 from repro_torch.sharding.api import (constrain, current_binding,
-                                      replicated, use_mesh)
+                                      local_block, replicated, use_mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +205,70 @@ def _target_logits(logits, targets):
         logits, torch.clamp(targets, min=0)[..., None].long(), dim=-1)[..., 0]
 
 
+_LOGIT_AXES = ("batch", "seq", "vocab")
+_ROW_AXES = ("batch", "seq")
+
+
+def _reduced(x):
+    """The DTensor ``x`` with its partial placements reduced (one
+    all-reduce over their mesh dimensions), the others kept."""
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _span_max(logits):
+    return torch.amax(logits.detach(), dim=-1)
+
+
+def _span_sum_exp(logits, top):
+    return torch.sum(torch.exp(logits - top[..., None]), dim=-1)
+
+
+def _span_target(logits, targets, *, offsets):
+    """The target logit where the target falls in this block's vocab span
+    ``[v0, v0 + Vl)``, else 0 (negative targets clamped to 0)."""
+    v0, vl = offsets[0][2], logits.shape[-1]
+    at = torch.clamp(targets, min=0).long() - v0
+    mine = (at >= 0) & (at < vl)
+    picked = torch.take_along_dim(logits, at.clamp(0, vl - 1)[..., None],
+                                  dim=-1)[..., 0]
+    return torch.where(mine, picked, torch.zeros_like(picked))
+
+
+def _vocab_sharded(logits) -> bool:
+    """True for DTensor logits whose vocab is split over ranks.  Where it
+    is whole (one rank on the axis, or a vocab the axis does not divide)
+    the loss runs the plain ops, as on one device, and the dry-run's
+    one-rank trace of a step is the same program as the step on the
+    card."""
+    return isinstance(logits, DTensor) and any(
+        isinstance(p, Shard) and p.dim == logits.ndim - 1
+        for p in logits.placements)
+
+
+def _vocab_parallel(logits, targets):
+    """``logsumexp(logits)`` and the target logits of the DTensor
+    ``logits`` placed on ``("batch", "seq", "vocab")``, each rank on its
+    own vocab span, as GSPMD computes the reference's: the span's max
+    (detached), one all-reduce max, its sum of ``exp(x - max)``, one
+    all-reduce sum, then ``log + max``; the target's logit from the span
+    it falls in (0 from the others), one all-reduce sum.  The backward
+    stays on the spans too: a one-hot in the target's span, and each
+    span's softmax.  No rank makes a tensor of its rows' whole vocab.
+
+    DTensor's own ``logsumexp`` gathers the vocab (torch 2.11 and 2.13
+    alike), and its ``gather`` fails to reduce the partial target over
+    vocab-sharded logits."""
+    top = _reduced(local_block(_span_max, (_LOGIT_AXES,), _ROW_AXES,
+                               partial=("vocab",), reduce_op="max")(logits))
+    sum_exp = local_block(_span_sum_exp, (_LOGIT_AXES, _ROW_AXES),
+                          _ROW_AXES, partial=("vocab",))(logits, top)
+    logz = torch.log(_reduced(sum_exp)) + top
+    tgt = local_block(_span_target, (_LOGIT_AXES, _ROW_AXES), _ROW_AXES,
+                      partial=("vocab",), offsets=True)(logits, targets)
+    return logz, _reduced(tgt)
+
+
 def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     """Next-token cross entropy (mean over non-pad tokens) + MoE aux loss.
 
@@ -220,13 +284,15 @@ def lm_loss(params, batch: dict, cfg: ModelConfig, **fw_kwargs):
     targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
                         dim=1)
     mask = (targets >= 0) & (batch.get("mask", torch.ones_like(tokens)) > 0)
-    logz = torch.logsumexp(logits, dim=-1)
-    # aten.gather over vocab-sharded logits: DTensor's vocab-parallel rule
-    # fails to reduce it, and its backward makes zeros of the logits'
-    # global shape on every rank, then splits them to the rank's rows a
-    # mesh dimension at a time; so each rank gathers its own batch rows
-    # of the logits, the vocab dimension gathered first
-    tgt = replicated(_target_logits, batched=(0, 1))(logits, targets)
+    if _vocab_sharded(logits):
+        logz, tgt = _vocab_parallel(logits, targets)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        # aten.gather: DTensor's backward makes zeros of the logits'
+        # global shape on every rank, then splits them to the rank's rows
+        # a mesh dimension at a time; so each rank takes its own batch
+        # rows (whole in vocab where the vocab is not sharded)
+        tgt = replicated(_target_logits, batched=(0, 1))(logits, targets)
     nll = (logz - tgt) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
     metrics = {"loss": loss, "tokens": torch.sum(mask)}

@@ -9,8 +9,9 @@ softmaxes are combined with the numerically-stable two-pass rule:
     o  = all-reduce sum of exp(local_max - m) · local_weighted_V   / l
 
 The JAX package pins this schedule with ``shard_map`` and three psums; here
-the three collectives are ``torch.distributed`` all-reduces on the mesh
-dimension's process group, and the inputs and output are DTensors on the
+the three collectives are ``torch.distributed``'s functional all-reduces
+on the mesh dimension's process group, the combine the sharded model's
+decode attention runs too, and the inputs and output are DTensors on the
 mesh.  Works for any kv_heads (no head-divisibility constraint) — the
 reason sequence sharding is the default decode layout.  Every collective
 is an all-reduce, which gloo also carries for CUDA tensors, so ranks that
@@ -22,15 +23,17 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.models import attention
 from repro_torch.models.common import ModelConfig
 
 
 def flash_decode_local(q, k_local, v_local, valid_local, group=None):
     """One-token attention over a sequence-sharded cache.
 
-    q: (B, 1, H, hd), the same on every rank of ``group``;
-    k_local/v_local: (B, L/n, KV, hd); valid_local: (B, L/n) bool.
-    Returns (B, 1, H, hd), the same on every rank.
+    q: (B, 1, H, hd), the same on every rank of ``group`` (the world when
+    None); k_local/v_local: (B, L/n, KV, hd); valid_local: (B, L/n) bool.
+    Returns (B, 1, H, hd), the same on every rank.  The combine is the
+    sharded model's (:func:`repro_torch.models.attention.flash_combine`).
     """
     b, _, h, hd = q.shape
     kv = k_local.shape[2]
@@ -38,15 +41,10 @@ def flash_decode_local(q, k_local, v_local, valid_local, group=None):
     qg = q.reshape(b, kv, g, hd) * (hd ** -0.5)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_local.float())
     s = torch.where(valid_local[:, None, None, :], s, -torch.inf)
-    m = torch.amax(s, dim=-1, keepdim=True)                 # (B,KV,G,1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-    # guard fully-masked shards: exp(-inf - m) -> 0
-    w = torch.exp(torch.where(torch.isfinite(s), s - m, -torch.inf))
-    l = torch.sum(w, dim=-1, keepdim=True)
+    m, l, w = attention.flash_partials(s)                   # (B,KV,G,·)
     o = torch.einsum("bkgs,bskh->bkgh", w.to(v_local.dtype), v_local).float()
-    dist.all_reduce(l, group=group)
-    dist.all_reduce(o, group=group)
-    out = o / torch.clamp(l, min=1e-30)
+    out = attention.flash_combine(
+        m, l, o, dist.group.WORLD if group is None else group)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

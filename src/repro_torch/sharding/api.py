@@ -421,7 +421,8 @@ def _regroup(x, placements, grad_placements) -> torch.Tensor:
 
 
 def local_block(fn, in_axes: tuple, out_axes: tuple, *,
-                partial: tuple = (), offsets: bool = False):
+                partial: tuple = (), reduce_op: str = "sum",
+                offsets: bool = False):
     """``fn`` run on each rank's block, as ``shard_map`` runs it.  Under a
     binding, each tensor argument is placed at the placements of its
     logical axes in ``in_axes`` (one tuple an argument, None to pass it as
@@ -430,8 +431,9 @@ def local_block(fn, in_axes: tuple, out_axes: tuple, *,
     tensors, with no mesh bound; a plain tensor counts as replicated.
     Its output is a DTensor whose dimensions are sharded over the mesh
     axes that the logical names in ``out_axes`` resolved to in the
-    arguments, and ``Partial()`` over those that the names in ``partial``
-    resolved to (``fn`` sums over them).  An argument replicated along a
+    arguments, and ``Partial(reduce_op)`` over those that the names in
+    ``partial`` resolved to (``fn`` sums over them, or takes their max
+    with ``reduce_op="max"``).  An argument replicated along a
     mesh dimension that some argument is sharded on gets a partial
     gradient there.  With ``offsets``, ``fn`` also gets ``offsets=``, each
     argument's block's global offset per dimension (None for a
@@ -509,7 +511,7 @@ def local_block(fn, in_axes: tuple, out_axes: tuple, *,
             for axis in _axes(resolved.get(name)):
                 m = names.index(axis)
                 if axis not in used and mesh.size(m) > 1:
-                    placements[m] = Partial()
+                    placements[m] = Partial(reduce_op)
         return DTensor.from_local(out, mesh, placements, run_check=False)
     return run
 

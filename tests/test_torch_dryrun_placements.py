@@ -83,15 +83,19 @@ def test_each_rank_computes_its_heads_and_holds_no_whole_expert_table(
         assert got["numel"] < table
 
 
-# gemma3-1b's tiny train and prefill cells on (1, 8), as the parent
-# commit traced them (torch 2.13): FLOPs, the collectives as {(op, result
-# bytes, group): count}, and the peak
+# gemma3-1b's tiny train and prefill cells on (1, 8), as the commit
+# before the heads were sharded traced them (torch 2.13): FLOPs, the
+# collectives as {(op, result bytes, group): count}, and the peak.  The
+# train cell's loss runs vocab-parallel since: its two all-gathers of
+# the rank's logit rows whole in vocab (8 x 16 x 256 float32, 131072 B:
+# logsumexp's and the target gather's) became three all-reduces of (8,
+# 16) float32 values (the spans' max, sum of exps and target logit)
 GEMMA_1X8 = {
     "train": (83820544.0, {
         ("all-gather", 4096, 8): 24, ("all-gather", 8192, 8): 6,
         ("all-gather", 16384, 8): 12, ("all-gather", 20480, 8): 6,
         ("all-gather", 40960, 8): 6, ("all-gather", 65536, 8): 1,
-        ("all-gather", 131072, 8): 2, ("all-reduce", 224, 8): 1,
+        ("all-reduce", 512, 8): 3, ("all-reduce", 224, 8): 1,
         ("all-reduce", 256, 8): 13, ("all-reduce", 16384, 8): 29,
         ("all-reduce", 32768, 8): 1, ("reduce-scatter", 2048, 8): 6,
         ("reduce-scatter", 5120, 8): 18}, 2436246),
