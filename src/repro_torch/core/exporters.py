@@ -136,10 +136,12 @@ def _export_json(rep, *, session=None, **kw) -> str:
 @register_exporter("chrome", capabilities={"trace"})
 def _export_chrome(rep, *, session=None, log=None, path=None,
                    tag_names=None, worker_names=None, critical=None,
-                   worker_hosts=None) -> str:
+                   worker_hosts=None, clock=None) -> str:
     """Chrome-trace JSON.  The report alone does not carry the event stream,
     so the log comes from ``log=`` or ``session.freeze()``; names, host
-    lanes and the critical overlay default to the report's."""
+    lanes and the critical overlay default to the report's.  ``clock``
+    puts the times on another trace's clock (see
+    :func:`~repro_torch.core.timeline.to_chrome_trace`)."""
     if log is None:
         if session is None:
             raise ValueError("chrome exporter needs log= or session=")
@@ -151,7 +153,8 @@ def _export_chrome(rep, *, session=None, log=None, path=None,
                       else rep.worker_names),
         critical=critical if critical is not None else rep.critical_table,
         worker_hosts=(worker_hosts if worker_hosts is not None
-                      else rep.worker_hosts))
+                      else rep.worker_hosts),
+        clock=clock)
     if path is not None:
         with open(path, "w") as f:
             f.write(data)

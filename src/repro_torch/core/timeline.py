@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
 
 from repro_torch.core.events import EventLog
 from repro_torch.core.tracer import Tracer
@@ -21,8 +22,14 @@ from repro_torch.core.tracer import Tracer
 def to_chrome_trace(log: EventLog, tag_names: list[str] | None = None,
                     worker_names: list[str] | None = None,
                     critical=None,
-                    worker_hosts: list[str] | None = None) -> str:
+                    worker_hosts: list[str] | None = None,
+                    clock=None) -> str:
     """Serialize an EventLog as a Chrome trace JSON string.
+
+    ``clock`` maps the log's nanoseconds (an integer array, or one int)
+    onto another trace's, so the two load side by side: for a
+    ``torch.profiler`` trace, :class:`repro_torch.spans.ClockMap` less
+    the trace's ``baseTimeNanoseconds``.  Without it, times are the log's.
 
     ``critical``: optional critical slices to overlay — any iterable of
     CriticalSlice rows (a list, a live ``CriticalBuffer`` or a columnar
@@ -44,9 +51,14 @@ def to_chrome_trace(log: EventLog, tag_names: list[str] | None = None,
     def _pid(w: int) -> int:
         return pid_of_worker.get(int(w), 0)
 
+    def at(t):
+        return t if clock is None else clock(t)
+
+    times = log.times if clock is None \
+        else clock(np.asarray(log.times, np.int64))
     events = []
     open_spans: dict[int, tuple[int, int]] = {}
-    for t, w, d, tag in zip(log.times, log.workers, log.deltas, log.tags):
+    for t, w, d, tag in zip(times, log.workers, log.deltas, log.tags):
         if d == 1:
             open_spans[int(w)] = (int(t), int(tag))
         else:
@@ -71,7 +83,8 @@ def to_chrome_trace(log: EventLog, tag_names: list[str] | None = None,
     for cs in critical or []:
         events.append({
             "name": "CRITICAL", "ph": "X", "pid": crit_pid, "tid": cs.worker,
-            "ts": cs.start_ns / 1e3, "dur": (cs.end_ns - cs.start_ns) / 1e3,
+            "ts": at(cs.start_ns) / 1e3,
+            "dur": (at(cs.end_ns) - at(cs.start_ns)) / 1e3,
             "args": {"cmetric_ms": cs.cm * 1e3,
                      "threads_av": cs.threads_av},
         })

@@ -47,6 +47,7 @@ single-writer); distinct workers never contend.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import sys
@@ -57,6 +58,7 @@ from typing import Iterator
 import numpy as np
 
 from repro_torch import device as device_lib
+from repro_torch import spans
 from repro_torch.core import backends as backends_lib
 from repro_torch.core.events import (ACTIVATE, DEACTIVATE, NO_STACK, NO_TAG,
                                EventLog, EventRing, EventStore,
@@ -162,6 +164,10 @@ class WorkerHandle:
             self.end()
 
 
+#: How many folding syncs :meth:`Tracer.drain_record` keeps.
+DRAIN_RECORD = 1 << 16
+
+
 class Tracer:
     """Sharded low-overhead span tracer with batched online CMetric.
 
@@ -223,6 +229,11 @@ class Tracer:
         # the orphaned end of a span whose begin was ring-dropped): the full
         # accounting is appended == len(freeze()) + ring.dropped + this
         self.tolerance_dropped = 0                # guarded-by: self._fold_lock
+        # events folded so far, and the newest DRAIN_RECORD syncs that
+        # folded any: see drain_record()
+        self._events_folded = 0                   # guarded-by: self._fold_lock
+        self._drains: collections.deque = collections.deque(
+            maxlen=DRAIN_RECORD)                  # guarded-by: self._fold_lock
         self._fold_lock = threading.Lock()     # flush/drain consumer lock
         # reader-priority hint: while a snapshot() waits on the fold lock,
         # the drain loop and the producers' opportunistic autoflushes back
@@ -333,25 +344,46 @@ class Tracer:
         present at entry is consumed in budget-sized flushes (bounded even
         under a live producer — rows appended *during* the sync stay
         pending, exactly like the unbudgeted single-pass drain)."""
-        with self._fold_lock:
+        t0 = self.clock()
+        with self._fold_lock, spans.DeviceSegment(self.clock) as seg:
+            n0 = self._events_folded
             if self.max_rows_per_sync is None:
                 self._flush_locked()
-                return
-            remaining = self.ring.pending()
-            while remaining > 0:
-                done = self._flush_locked(self.max_rows_per_sync)
-                if done == 0:
-                    break
-                remaining -= done
+            else:
+                remaining = self.ring.pending()
+                while remaining > 0:
+                    done = self._flush_locked(self.max_rows_per_sync)
+                    if done == 0:
+                        break
+                    remaining -= done
+            self._record_drain(t0, seg, n0)
 
     def sync_budgeted(self) -> int:
         """One budget-capped flush (the session drain loop's step): decodes
         at most ``max_rows_per_sync`` rows per shard, so a mid-capture
         ``snapshot()`` waiting on the fold lock is never stuck behind an
         unbounded decode.  Returns the rows still pending after it."""
-        with self._fold_lock:
+        t0 = self.clock()
+        with self._fold_lock, spans.DeviceSegment(self.clock) as seg:
+            n0 = self._events_folded
             self._flush_locked(self.max_rows_per_sync)
+            self._record_drain(t0, seg, n0)
         return self.ring.pending()
+
+    def _record_drain(self, t0: int, seg, n0: int) -> None:  # guarded-by: self._fold_lock
+        if self._events_folded > n0:
+            self._drains.append((t0, seg.begin, seg.end, self.clock(),
+                                 self._events_folded - n0))
+
+    def drain_record(self) -> list[tuple]:
+        """The newest :data:`DRAIN_RECORD` syncs that folded events, oldest
+        first, each ``(begin, device_begin, device_end, end, events)`` on
+        the tracer's clock: the call's entry (before the fold lock) and
+        exit, and the fold prefix's upload through its read-back
+        (:func:`repro_torch.spans.on_device`; None where the fold used no
+        device)."""
+        with self._fold_lock:
+            return list(self._drains)
 
     def _flush_locked(self, limit: int | None = None) -> int:  # guarded-by: self._fold_lock
         chunk = self.ring.drain(limit)
@@ -402,6 +434,7 @@ class Tracer:
                 table.stack_id[r] = sid
                 stacks_col[deact_pos[r]] = sid
             self._critical.extend_table(table, crit_mask)
+        self._events_folded += times.shape[0]
         self._store.append_columns(times, workers, deltas, tags, stacks_col)
         for sink in self.sinks:
             sink.append_columns(times, workers, deltas, tags, stacks_col)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import spans
 from repro_torch.kernels import cmetric_fold as _fold
 from repro_torch.kernels import stream_scan as _stream
 from repro_torch.kernels import tag_hist as _hist
@@ -37,13 +38,16 @@ def fold_chunk_prefix(gcm0: float, idle0: float, contrib, idle_contrib, *,
     host-computed per-event contributions on the ``carry_cumsum`` kernel.
 
     Returns ``(g float64[E], idle_end float)`` where ``g[i]`` is the
-    global_cm value at event ``i``.
+    global_cm value at event ``i``.  The upload through the read-back is
+    the drain's device segment (:func:`repro_torch.spans.on_device`).
     """
     dev = device_lib.resolve(device)
-    c = torch.from_numpy(np.asarray(contrib, np.float32)).to(dev)
-    i = torch.from_numpy(np.asarray(idle_contrib, np.float32)).to(dev)
-    g, _, idle_end = _fold.carry_cumsum(c, i, (gcm0, idle0))
-    return g.cpu().numpy().astype(np.float64), float(idle_end)
+    with spans.on_device():
+        c = torch.from_numpy(np.asarray(contrib, np.float32)).to(dev)
+        i = torch.from_numpy(np.asarray(idle_contrib, np.float32)).to(dev)
+        g, _, idle_end = _fold.carry_cumsum(c, i, (gcm0, idle0))
+        g, idle_end = g.cpu().numpy().astype(np.float64), float(idle_end)
+    return g, idle_end
 
 
 def tag_histogram(tags, weights=None, *, num_bins: int):

@@ -22,6 +22,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
 from repro_torch.sharding.api import constrain
+from repro_torch.spans import span
 
 
 def init_mlp(gen, cfg: ModelConfig, *, device=None) -> dict:
@@ -69,31 +70,36 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device=None) -> dict:
     return p
 
 
+def _self_attention(p, h, positions, cfg: ModelConfig, kind: str,
+                    local_impl: str):
+    """The attention entry a block of ``kind`` runs over the sequence."""
+    s = h.shape[1]
+    if kind in ("dense", "moe"):
+        if cfg.attn_qchunk and s > cfg.attn_qchunk:
+            return attn_lib.attention_blockwise(p, h, positions, cfg,
+                                                q_chunk=cfg.attn_qchunk)
+        return attn_lib.attention(p, h, positions, cfg, window=None)
+    if kind == "local":
+        if local_impl == "chunked" and s % cfg.window == 0 \
+                and s >= 2 * cfg.window:
+            return attn_lib.attention_chunked_local(p, h, positions, cfg,
+                                                    window=cfg.window)
+        return attn_lib.attention(p, h, positions, cfg, window=cfg.window)
+    return attn_lib.attention(p, h, positions, cfg, window=None,
+                              causal=kind != "encoder")
+
+
 def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
                 memory=None, memory_positions=None, local_impl: str = "mask"):
-    """Full-sequence forward.  Returns (y, aux)."""
+    """Full-sequence forward.  Returns (y, aux).  Each attention call is
+    the span ``model/attention`` (:mod:`repro_torch.spans`)."""
     aux = {}
     x = constrain(x, "batch", "resid_seq", "embed")
     h = constrain(rms_norm(x, p["ln1"]), "batch", "resid_seq", "embed")
-    if kind in ("dense", "moe"):
-        if cfg.attn_qchunk and x.shape[1] > cfg.attn_qchunk:
-            a = attn_lib.attention_blockwise(p["attn"], h, positions, cfg,
-                                             q_chunk=cfg.attn_qchunk)
-        else:
-            a = attn_lib.attention(p["attn"], h, positions, cfg, window=None)
-    elif kind == "local":
-        if local_impl == "chunked" and x.shape[1] % cfg.window == 0 \
-                and x.shape[1] >= 2 * cfg.window:
-            a = attn_lib.attention_chunked_local(p["attn"], h, positions, cfg,
-                                                 window=cfg.window)
-        else:
-            a = attn_lib.attention(p["attn"], h, positions, cfg,
-                                   window=cfg.window)
-    elif kind == "encoder":
-        a = attn_lib.attention(p["attn"], h, positions, cfg, window=None,
-                               causal=False)
-    elif kind == "cross":
-        a = attn_lib.attention(p["attn"], h, positions, cfg, window=None)
+    if kind in ("dense", "moe", "local", "encoder", "cross"):
+        with span("model/attention"):
+            a = _self_attention(p["attn"], h, positions, cfg, kind,
+                                local_impl)
     elif kind == "rglru":
         a, _ = rec_lib.rglru_block(p["mix"], h, cfg)
     elif kind == "rwkv":
@@ -103,8 +109,11 @@ def apply_block(p, x, positions, cfg: ModelConfig, kind: str, *,
     x = x + a
     if kind == "cross":
         hx = rms_norm(x, p["ln_x"])
-        x = x + attn_lib.attention(p["xattn"], hx, positions, cfg, window=None,
-                                   kv_x=memory, kv_positions=memory_positions)
+        with span("model/attention"):
+            y = attn_lib.attention(p["xattn"], hx, positions, cfg,
+                                   window=None, kv_x=memory,
+                                   kv_positions=memory_positions)
+        x = x + y
     h2 = constrain(rms_norm(x, p["ln2"]), "batch", "resid_seq", "embed")
     if kind == "moe":
         f, aux = moe_lib.moe_ffn(p["ffn"], h2, cfg)
@@ -146,12 +155,11 @@ def step_block(p, x, pos, state, cfg: ModelConfig, kind: str, *,
     block's state comes back as new tensors."""
     h = rms_norm(x, p["ln1"])
     new_state = dict(state)
-    if kind in ("dense", "moe", "encoder", "cross"):
-        a, new_state["kv"] = attn_lib.decode_attention(
-            p["attn"], h, pos, state["kv"], cfg, window=None)
-    elif kind == "local":
-        a, new_state["kv"] = attn_lib.decode_attention(
-            p["attn"], h, pos, state["kv"], cfg, window=cfg.window)
+    if kind in ("dense", "moe", "encoder", "cross", "local"):
+        with span("model/attention"):
+            a, new_state["kv"] = attn_lib.decode_attention(
+                p["attn"], h, pos, state["kv"], cfg,
+                window=cfg.window if kind == "local" else None)
     elif kind == "rglru":
         a, new_state["rec"] = rec_lib.rglru_step(p["mix"], h, state["rec"],
                                                  cfg)
@@ -164,9 +172,11 @@ def step_block(p, x, pos, state, cfg: ModelConfig, kind: str, *,
     if kind == "cross":
         hx = rms_norm(x, p["ln_x"])
         mem_x, mem_pos = memory
-        kv = attn_lib._project_kv(p["xattn"], mem_x, cfg, mem_pos)
-        y, _ = attn_lib.decode_attention(p["xattn"], hx, pos, state["kv"],
-                                         cfg, window=None, kv_memory=kv)
+        with span("model/attention"):
+            kv = attn_lib._project_kv(p["xattn"], mem_x, cfg, mem_pos)
+            y, _ = attn_lib.decode_attention(p["xattn"], hx, pos,
+                                             state["kv"], cfg, window=None,
+                                             kv_memory=kv)
         x = x + y
     h2 = rms_norm(x, p["ln2"])
     if kind == "moe":

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.models.common import tree_items, tree_map
 from repro_torch.sharding.api import narrow_to
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +86,7 @@ def update(cfg: AdamWConfig, grads, state, params):
     if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v)):
         raise ValueError("update: grads, moments and params differ in "
                          "structure")
-    with torch.no_grad():
+    with torch.no_grad(), span("optim/adamw"):
         step = state["step"] + 1
         gnorm = global_norm(grads)
         lr = schedule(cfg, step)

@@ -22,6 +22,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.models import decode_step, forward, init_decode_state
 from repro_torch.models.common import ModelConfig, tree_leaves
+from repro_torch.spans import span
 
 
 def make_prefill_step(cfg: ModelConfig, **fw_kwargs) -> Callable:
@@ -112,20 +113,23 @@ class Engine:
                               for i in range(batch_slots)]
 
     def submit(self, req: Request) -> bool:
-        for i in range(self.slots):
-            if self.active[i] is None:
-                self.active[i] = req
-                self.tokens[i] = int(req.prompt[-1])
-                self.pos[i] = len(req.prompt) - 1
-                if self.gapp is not None:
-                    self.gapp.begin(self.slot_wids[i], f"decode/req{req.rid}")
-                return True
-        return False
+        with span("serve/submit"):
+            for i in range(self.slots):
+                if self.active[i] is None:
+                    self.active[i] = req
+                    self.tokens[i] = int(req.prompt[-1])
+                    self.pos[i] = len(req.prompt) - 1
+                    if self.gapp is not None:
+                        self.gapp.begin(self.slot_wids[i],
+                                        f"decode/req{req.rid}")
+                    return True
+            return False
 
     def step(self) -> list[Request]:
         """One decode step for all active slots; returns finished requests."""
-        next_tok, _, self.state = self._step(self.params, self.tokens,
-                                             self.pos, self.state)
+        with span("serve/step.issue"):
+            next_tok, _, self.state = self._step(self.params, self.tokens,
+                                                 self.pos, self.state)
         self.tokens = next_tok
         self.pos = self.pos + 1
         toks = next_tok.tolist()        # the step's one read on the host

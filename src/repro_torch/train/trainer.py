@@ -29,6 +29,7 @@ from repro_torch.data.pipeline import PrefetchLoader, SyntheticLM
 from repro_torch.models import init_lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.spans import span
 from repro_torch.train.step import make_train_step
 
 
@@ -126,13 +127,15 @@ class Trainer:
                 # semantics — a blocked thread leaves TASK_RUNNING), so a
                 # slow loader runs alone and its data/generate slices are
                 # the ones that turn critical
-                batch = self.loader.get()
+                with span("train/loader_wait"):
+                    batch = self.loader.get()
                 if g:
                     g.begin(self.w_train, "train/step")
                 batch = {k: torch.from_numpy(v).to(self.device)
                          for k, v in batch.items()}
-                params, opt_state, metrics, err = self.step_fn(
-                    params, opt_state, batch, err)
+                with span("train/step.issue"):
+                    params, opt_state, metrics, err = self.step_fn(
+                        params, opt_state, batch, err)
                 float(metrics["loss"])      # waits for the step's work
                 if g:
                     g.end(self.w_train)

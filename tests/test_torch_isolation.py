@@ -33,7 +33,7 @@ def _env():
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
-            "repro_torch.device, repro_torch.kernels.ops, "
+            "repro_torch.device, repro_torch.spans, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.core.session, "
             "repro_torch.fleet, repro_torch.obs, repro_torch.models, "
             "repro_torch.configs, repro_torch.sharding, repro_torch.serve, "
