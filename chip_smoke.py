@@ -26,7 +26,10 @@ Phases (any failure exits non-zero):
    order, on the host), then it and its plain version timed at E = 2^24,
    the whole call eager and from a CUDA graph, each of its launches' device
    time from one profiled call, and its chain launch alone against the
-   chain bound.
+   chain bound; decode_attn at the decode cells' shape against a float64
+   oracle of its arithmetic and its plain version, timed beside
+   ``scaled_dot_product_attention`` over the masked cache (``library``)
+   and the masked whole-cache path it replaced (``composite``).
 3. The main path: ``detect_offline`` with the fused backend, whole-log and
    with ``chunk_events=1<<20``, checked against the float64 ``numpy``
    chunked fold (per-worker CMetric, slice counts, critical-set flips, the
@@ -193,7 +196,10 @@ through.  Every kernel call such a path makes is recorded (its inputs and
 outputs, cloned on the card) and held against the kernel's plain version
 on the same inputs after the run, at the tolerances of phase 2: so the
 kernels are also checked at the shapes the live and fleet paths hand them
-(drain chunks of tens of events, a few hundred keys).
+(drain chunks of tens of events, a few hundred keys).  A decode_attn call
+is held on the card as it returns (against the float64 oracle, its atol
+1e-5 of the largest |v|, and the plain version), and only its errors are
+kept; two launches a call must add up to the path's count.
 
 The last three lines are the card's name and power limit, one JSON object
 with a row per kernel (the other shapes it was timed at under ``shapes``;
@@ -481,6 +487,7 @@ class KernelRows:
 FOLD_SRC = "src/repro_torch/kernels/csrc/cmetric_fold.cu"
 HIST_SRC = "src/repro_torch/kernels/csrc/tag_hist.cu"
 STREAM_SRC = "src/repro_torch/kernels/csrc/stream_scan.cu"
+ATTN_SRC = "src/repro_torch/kernels/csrc/decode_attn.cu"
 
 
 def hold_fold(label, dt, deltas, carry, out) -> dict:
@@ -671,6 +678,121 @@ def check_hist(rows, tg, wt, k, shape, repeats, key="hist"):
                                repeats))
 
 
+def attn_oracle(q, k, v, pos, window, softcap):
+    """decode_attn's arithmetic in float64, eight slots at a time: q scaled
+    in its dtype, the softmax over each slot's written interval, float64
+    weights against v."""
+    import torch
+    from repro_torch.kernels import decode_attn as attn_k
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
+    lo, hi, flat = attn_k.written_interval(pos, k.shape[1], window)
+    rows = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for i in range(0, b, 8):
+        sl = slice(i, i + 8)
+        n = q[sl].shape[0]
+        qs = (q[sl] * (hd ** -0.5)).double().reshape(n, kv, h // kv, hd)
+        s = torch.einsum("bkgd,bskd->bkgs", qs, k[sl].double())
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(flat[sl, None, None, None], 0.0, s)
+        keep = (rows >= lo[sl, None]) & (rows <= hi[sl, None])
+        s = s.masked_fill(~keep[:, None, None, :], -math.inf)
+        outs.append(torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, -1),
+                                 v[sl].double()).reshape(n, 1, h, hd))
+    return torch.cat(outs)
+
+
+def decode_attn_errors(a, out, atol):
+    """A decode_attn call's output ``out`` (its arguments ``a`` by name)
+    against the float64 oracle and against the plain version, on the card
+    and with no host sync: float32 [max |out - oracle|, its largest share
+    of the oracle's tolerance, max |out - plain|, its largest share of the
+    plain version's].  Against the oracle: rtol 2^-8 in bfloat16 (the
+    output's one rounding), 1e-5 in float32, and ``atol`` (the float32
+    sums); against the plain version, which rounds the weights to the
+    dtype before the product with v: rtol 2^-7 and 2^-9 of the largest
+    |v|.  A share above 1, or NaN, fails.  ``atol`` may be a tensor on the
+    card."""
+    import torch
+    from repro_torch.kernels import decode_attn as attn_k
+    q, k, v, pos = a["q"], a["k"], a["v"], a["pos"]
+    window, softcap = a["window"], a["softcap"]
+    got = out.double()
+    want = attn_oracle(q, k, v, pos, window, softcap)
+    plain = attn_k.decode_attn_ref(q, k, v, pos, window, softcap).double()
+    vmax = v.abs().max().double()
+    rtol = 2.0 ** -8 if q.dtype == torch.bfloat16 else 1e-5
+    e_o = (got - want).abs()
+    e_p = (got - plain).abs()
+    share_o = e_o / (atol + rtol * want.abs()).clamp(min=1e-30)
+    share_p = e_p / (2.0 ** -9 * vmax + 2.0 ** -7 * plain.abs()).clamp(
+        min=1e-30)
+    return torch.stack([e_o.max(), share_o.max(), e_p.max(),
+                        share_p.max()]).float()
+
+
+def check_decode_attn(rows, dev) -> None:
+    """decode_attn at the decode cells' shape (gappbench's
+    ``ds7b8-decode-c4k-*``: 96 slots, a 4,096-row cache, 32 MHA heads of
+    128, bfloat16), each slot's pos drawn from the cells' request starts
+    (256-3,072), held by :func:`decode_attn_errors` at the CUDA tests'
+    tolerance (the oracle's atol 1e-5), timed beside the plain version,
+    ``scaled_dot_product_attention`` over the same validity mask
+    (``library``) and the masked attention over the whole cache it
+    replaced (``_sdpa_math``, ``composite``); the bound counts each slot's
+    written K and V rows once, and ``whole_cache_bound_ms`` the whole
+    cache."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as attn_k
+    from repro_torch.models import attention as attn_lib
+    b, length, kv, h, hd = 96, 4096, 32, 32, 128
+    gen = torch.Generator(dev).manual_seed(SEED)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, length, kv, hd), generator=gen,
+                    device=dev).bfloat16()
+    v = torch.randn((b, length, kv, hd), generator=gen,
+                    device=dev).bfloat16()
+    pos = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        256, 3073, b).astype(np.int32)).to(dev)
+    got = attn_k.decode_attn(q, k, v, pos)
+    e_o, share_o, e_p, share_p = decode_attn_errors(
+        {"q": q, "k": k, "v": v, "pos": pos, "window": None, "softcap": 0.0},
+        got, 1e-5).tolist()
+    check(share_o <= 1.0 and share_p <= 1.0,
+          f"decode_attn: max |kernel - oracle| {e_o:.3e} ({share_o:.3f} of "
+          f"its tolerance), max |kernel - plain| {e_p:.3e} ({share_p:.3f})")
+    slots = torch.arange(length, device=dev)[None, :]
+    mask = (slots <= pos[:, None].long())[:, None, None, None, :]
+    cfg = types.SimpleNamespace(opt_level=0, logits_softcap=0.0)
+    # the library's attention in (B, heads, rows, hd): views, no copies
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt,
+                                              attn_mask=mask[:, 0])
+    lib_err = float((library().transpose(1, 2).double()
+                     - attn_oracle(q, k, v, pos, None, 0.0)).abs().max())
+    row_bytes = 2 * kv * hd * k.element_size()
+    rows_read = int((pos.long() + 1).sum())
+    rows.add("decode_attn", "decode_attn.decode_attn", ATTN_SRC, "none",
+             f"B={b} L={length} KV={kv} H={h} hd={hd} bf16, "
+             f"{rows_read} written rows", e_p,
+             time_ms(lambda: attn_k.decode_attn(q, k, v, pos)),
+             time_ms(lambda: attn_k.decode_attn_ref(q, k, v, pos), 3),
+             rows_read * row_bytes + 2 * q.numel() * q.element_size(),
+             4.0 * rows_read * h * hd, time_ms(library, 3),
+             time_ms(lambda: attn_lib._sdpa_math(q, k, v, mask, cfg), 3),
+             graph_ms=graph_ms(lambda: attn_k.decode_attn(q, k, v, pos)),
+             whole_cache_bound_ms=bound_ms(b * length * row_bytes, 0)[0],
+             oracle_max_abs_err=e_o, library_max_abs_err=lib_err)
+    del q, k, v, got, mask, qt, kt, vt
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock, from nvidia-smi."""
     out = subprocess.run(
@@ -810,7 +932,10 @@ def check_stream(rows, log, dev):
 WRAPPERS = {"fold": ("cmetric_fold", "fold"),
             "carry_cumsum": ("cmetric_fold", "carry_cumsum"),
             "hist": ("tag_hist", "hist"),
-            "stream": ("stream_scan", "stream_scan")}
+            "stream": ("stream_scan", "stream_scan"),
+            "decode_attn": ("decode_attn", "decode_attn")}
+#: Launches a wrapper call counts, where it is not one.
+LAUNCHES_PER_CALL = {"decode_attn": 2}
 
 
 def _on_card(x) -> bool:
@@ -845,7 +970,11 @@ def recording():
     card: its arguments by name and its outputs, cloned on the card right
     after the call.  :func:`hold_recorded` then holds the path's own
     launches against the plain versions, so the checks launch nothing that
-    the path's counts would see."""
+    the path's counts would see.  A decode_attn call is held on the card
+    right after it instead (:func:`decode_attn_errors`, which launches no
+    kernel of the port), and only its errors kept: a clone of every
+    step's cache would not fit.  Its oracle's atol is 1e-5 of the largest
+    |v| (at least 1e-5), since the float32 sums err with v's scale."""
     import importlib
     import inspect
     calls = {key: [] for key in WRAPPERS}
@@ -864,9 +993,14 @@ def recording():
             if _on_card(args[0]):
                 bound = _sig.bind(*args, **kw)
                 bound.apply_defaults()
+                a = dict(bound.arguments)
+                if _key == "decode_attn":
+                    rec = decode_attn_errors(a, out, 1e-5 * a["v"].abs()
+                                             .max().double().clamp(min=1.0))
+                else:
+                    rec = (_clone(a), _clone(out))
                 with lock:
-                    calls[_key].append((_clone(dict(bound.arguments)),
-                                        _clone(out)))
+                    calls[_key].append(rec)
             return out
 
         setattr(mod, attr, wrapper)
@@ -882,10 +1016,26 @@ def hold_recorded(label, calls, launches) -> None:
     """Hold each recorded call of a path against its kernel's plain
     version, at the tolerances of phase 2, and print what was held; every
     launch the path counted must have been recorded."""
+    import torch
     out = []
     for key, held in calls.items():
-        check(len(held) == launches.get(key, 0), f"{label}: {len(held)} "
-              f"{key} calls recorded, {launches.get(key, 0)} launched")
+        per_call = LAUNCHES_PER_CALL.get(key, 1)
+        check(per_call * len(held) == launches.get(key, 0), f"{label}: "
+              f"{len(held)} {key} calls recorded ({per_call} launches a "
+              f"call), {launches.get(key, 0)} launched")
+        if key == "decode_attn":
+            if held:
+                e = torch.stack([x.cpu() for x in held]).double()
+                e_o, share_o, e_p, share_p = e.max(0).values.tolist()
+                check(bool((e[:, 1] <= 1.0).all() and (e[:, 3] <= 1.0).all()),
+                      f"{label}: a decode_attn call: max |kernel - oracle| "
+                      f"{e_o:.3e} ({share_o:.3f} of its tolerance), max "
+                      f"|kernel - plain| {e_p:.3e} ({share_p:.3f})")
+                out.append(f"decode_attn {len(held)} calls (max |kernel - "
+                           f"oracle| {e_o:.3e}, {share_o:.3f} of its "
+                           f"tolerance; max |kernel - plain| {e_p:.3e}, "
+                           f"{share_p:.3f})")
+            continue
         diffs = []
         for i, (a, res) in enumerate(held):
             what = f"{label} call {i}"
@@ -1013,6 +1163,8 @@ def main(argv=None) -> int:
     # (another checkout, under --src, may predate the stream kernel)
     if importlib.util.find_spec("repro_torch.kernels.stream_scan"):
         check_stream(rows, log, dev)
+    if importlib.util.find_spec("repro_torch.kernels.decode_attn"):
+        check_decode_attn(rows, dev)
     torch.cuda.empty_cache()
 
     # -- phase 3: the main path -----------------------------------------------
@@ -1078,7 +1230,8 @@ def main(argv=None) -> int:
 
     print(smi)
     print(json.dumps({"kernels": [rows.rows[k] for k in (
-        "fold", "carry_cumsum", "hist", "stream")]}))
+        "fold", "carry_cumsum", "hist", "stream")] + [
+            rows.rows[k] for k in ("decode_attn",) if k in rows.rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = {"cmetric_fold": "cmetric_fold.cu", "tag_hist": "tag_hist.cu",
-           "stream_scan": "stream_scan.cu"}
+           "stream_scan": "stream_scan.cu", "decode_attn": "decode_attn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,10 @@ SIGNATURES = {
         "gapp_stream_rows": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
                              _P, _P],
         "gapp_stream_cm": [_P, _P, _I, _P, _P],
+    },
+    "decode_attn": {
+        "gapp_decode_attn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _F, _I, _I, _I, _I, _P],
     },
 }
 

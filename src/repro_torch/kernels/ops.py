@@ -13,6 +13,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch import spans
 from repro_torch.kernels import cmetric_fold as _fold
+from repro_torch.kernels import decode_attn as _attn
 from repro_torch.kernels import stream_scan as _stream
 from repro_torch.kernels import tag_hist as _hist
 
@@ -81,12 +82,22 @@ def compute_fused(log):
     return cmetric_lib.drive_pairing(log, _fused_pipeline)
 
 
+def decode_attention(q, k, v, pos, *, window=None, softcap=0.0):
+    """A decode step's attention over each slot's written cache rows on the
+    ``decode_attn`` kernel: ``(B, 1, H, hd)`` in q's dtype, see
+    :func:`repro_torch.kernels.decode_attn.decode_attn`."""
+    return _attn.decode_attn(q, k, v, pos, window=window, softcap=softcap)
+
+
+_COUNTS = (_fold.LAUNCHES, _hist.LAUNCHES, _stream.LAUNCHES, _attn.LAUNCHES)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {**_fold.LAUNCHES, **_hist.LAUNCHES, **_stream.LAUNCHES}
+    return {k: n for counts in _COUNTS for k, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_fold.LAUNCHES, _hist.LAUNCHES, _stream.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

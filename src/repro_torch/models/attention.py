@@ -8,11 +8,16 @@ Covers every assigned attention variant:
   * bidirectional encoder attention and cross attention (seamless enc-dec)
   * decode against a KV cache.
 
-Attention is plain tensor code, as in the JAX package (no kernel): the
-scores are float32 products of the compute-dtype q and k, the softmax is
-float32, and the probabilities go back to the compute dtype before the
-product with v.  :func:`decode_attention` writes the new K/V into the
-cache in place (see its docstring).
+Training, prefill, cross attention and the sharded decode are plain tensor
+code, as in the JAX package: the scores are float32 products of the
+compute-dtype q and k, the softmax is float32, and the probabilities go
+back to the compute dtype before the product with v.  The single-card
+decode step's attention over its cache goes through
+:func:`repro_torch.kernels.ops.decode_attention`: on the card a
+hand-written kernel (one pass over each slot's written rows, the weights
+kept in float32), on the CPU its plain version (this arithmetic over those
+rows).  :func:`decode_attention` writes the new K/V into the cache in
+place (see its docstring).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        rope, softcap)
 from repro_torch.sharding.api import (axis_sizes, constrain,
@@ -506,8 +512,11 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
 
     The new (k, v) is written at ``pos % cache_len`` (ring semantics for
     local windows, linear for full caches — callers size the cache
-    accordingly).  Attention itself runs over the full cache with a validity
-    mask, so the same code serves both layouts.
+    accordingly).  Attention attends the rows the reference's validity mask
+    keeps (linear-fill semantics: a ring that wrapped counts every slot as
+    written), so the same code serves both layouts: over a DTensor cache
+    as masked scores of the whole cache, elsewhere on the ``decode_attn``
+    kernel, which reads only those rows.
 
     Unlike the reference, which returns an updated copy, the write goes
     into ``cache``'s tensors in place, and ``cache`` itself is returned:
@@ -525,13 +534,16 @@ def decode_attention(p, x, pos, cache, cfg: ModelConfig, *,
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
     slot = (pos % length).long()                 # (B,)
-    if isinstance(k, DTensor):
-        _write_shards(k, slot, k_new[:, 0])
-        _write_shards(v, slot, v_new[:, 0])
-    else:
+    if not isinstance(k, DTensor):
         rows = torch.arange(b, device=x.device)
         k[rows, slot] = k_new[:, 0].to(k.dtype)
         v[rows, slot] = v_new[:, 0].to(v.dtype)
+        out = kernel_ops.decode_attention(
+            q, k, v, pos.to(torch.int32), window=window,
+            softcap=cfg.logits_softcap)
+        return _project_out(out, p, cfg), cache
+    _write_shards(k, slot, k_new[:, 0])
+    _write_shards(v, slot, v_new[:, 0])
     # validity: linear-fill semantics, as in the reference (a ring that
     # wrapped counts every slot as written)
     slots = torch.arange(length, device=x.device)[None, :]   # (1, L)

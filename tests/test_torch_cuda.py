@@ -8,7 +8,12 @@ histogram's paths and each path reached through K, skewed and
 all-in-one-bin keys, and inputs that are not 16-byte aligned.  Tolerances: ``n`` and counts exact; float prefixes rtol 1e-5
 (both are float32 scans, summed in another order); weighted histogram
 rtol 1e-4 (float atomics in a varying order); the stream scan exact (the
-same float32 operations in the same order).  Each test needs a CUDA card
+same float32 operations in the same order).  Decode attention against a
+float64 oracle of its own arithmetic (q scaled in its dtype, float32
+weights): bfloat16 rtol 2^-8, the output's one rounding, atol 1e-5, the
+float32 sums; float32 rtol/atol 1e-5; against its plain version, which
+rounds the weights to bfloat16 before the product with v, rtol 2^-7 and
+atol 2^-9 of the largest |v| besides.  Each test needs a CUDA card
 and skips without one; run them there with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -19,6 +24,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import cmetric_fold as fold_k
+from repro_torch.kernels import decode_attn as attn_k
 from repro_torch.kernels import tag_hist as hist_k
 
 
@@ -561,6 +567,133 @@ def test_cuda_session_routes_the_histogram_to_the_card(cuda_device, backend):
     np.testing.assert_allclose(rep.per_worker, oracle.per_worker, rtol=1e-4,
                                atol=1e-6)
     assert rep.paths[0].stack == chip_smoke.INJECTED_PATH
+
+
+def _attn_tensor(shape, gen, dev, dtype, offset, scale=1.0):
+    """A contiguous normal tensor of ``shape``; ``offset`` 1 starts it one
+    element into its storage (not 16-byte aligned)."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=gen, device=dev) * scale
+    return flat.to(dtype)[offset:].view(shape)
+
+
+def _attn_inputs(b, length, kv, h, hd, pos, dtype, dev, seed, offset=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = _attn_tensor((b, 1, h, hd), gen, dev, dtype, offset)
+    k = _attn_tensor((b, length, kv, hd), gen, dev, dtype, offset, 2.0)
+    v = _attn_tensor((b, length, kv, hd), gen, dev, dtype, offset)
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _attn_oracle(q, k, v, pos, window, softcap):
+    """The kernel's arithmetic in float64, eight slots at a time: q scaled
+    in its dtype, the written rows' softmax, float64 weights against v."""
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
+    lo, hi, flat = attn_k.written_interval(pos, k.shape[1], window)
+    rows = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for i in range(0, b, 8):
+        sl = slice(i, i + 8)
+        n = q[sl].shape[0]
+        qs = (q[sl] * (hd ** -0.5)).double().reshape(n, kv, h // kv, hd)
+        s = torch.einsum("bkgd,bskd->bkgs", qs, k[sl].double())
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(flat[sl, None, None, None], 0.0, s)
+        keep = (rows >= lo[sl, None]) & (rows <= hi[sl, None])
+        s = s.masked_fill(~keep[:, None, None, :], -np.inf)
+        w = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgs,bskd->bkgd", w, v[sl].double())
+                    .reshape(n, 1, h, hd))
+    return torch.cat(outs)
+
+
+def _check_attn(got, q, k, v, pos, window, softcap):
+    want = _attn_oracle(q, k, v, pos, window, softcap)
+    assert got.dtype == q.dtype and got.shape == q.shape and got.is_cuda
+    rtol, atol = (2.0 ** -8, 1e-5) if q.dtype == torch.bfloat16 else \
+        (1e-5, 1e-5)
+    torch.testing.assert_close(got.double(), want, rtol=rtol, atol=atol)
+
+
+def test_cuda_decode_attn_matches_plain_at_the_cells_shape(cuda_device):
+    """The decode cells' attention: 96 slots, a 4,096-row cache, 32 MHA
+    heads of 128, bfloat16, ragged pos over 0..4,095 (the first and last
+    rows included), against the float64 oracle and the plain version."""
+    rng = np.random.default_rng(28)
+    pos = rng.integers(0, 4096, size=96)
+    pos[:2] = (0, 4095)
+    q, k, v, pos = _attn_inputs(96, 4096, 32, 32, 128, pos.tolist(),
+                                torch.bfloat16, cuda_device, 28)
+    before = attn_k.LAUNCHES["decode_attn"]
+    got = attn_k.decode_attn(q, k, v, pos)
+    assert attn_k.LAUNCHES["decode_attn"] == before + 2
+    _check_attn(got, q, k, v, pos, None, 0.0)
+    plain = attn_k.decode_attn_ref(q, k, v, pos)
+    torch.testing.assert_close(
+        got.float(), plain.float(), rtol=2.0 ** -7,
+        atol=2.0 ** -9 * float(v.abs().max()))
+
+
+#: (slots, cache rows, kv heads, heads, head dim, window, softcap, pos):
+#: the tiny configs that the card runs (hd 16) and every family's widths
+#: (seamless hd 64 MHA; qwen3 g 8, grok g 6 with its softcap, arctic g 7;
+#: gemma3 and recurrentgemma hd 256, one kv head, local rings; MQA g 16).
+ATTN_CASES = {
+    "deepseek-tiny": (2, 8, 4, 4, 16, None, 0.0, [0, 5]),
+    "qwen3-tiny": (3, 16, 2, 8, 16, None, 0.0, [15, 16, 40]),
+    "gemma3-tiny-ring": (4, 8, 1, 4, 16, 8, 0.0, [3, 10, 14, 15]),
+    "grok-tiny": (2, 8, 2, 4, 16, None, 30.0, [2, 7]),
+    "seamless-64": (4, 300, 16, 16, 64, None, 0.0, [0, 77, 299, 1000]),
+    "qwen3-128": (3, 1024, 8, 64, 128, None, 0.0, [1, 600, 1023]),
+    "grok-128": (3, 512, 8, 48, 128, None, 30.0, [511, 100, 7]),
+    "arctic-128": (2, 1000, 8, 56, 128, None, 0.0, [999, 333]),
+    "gemma3-256-ring": (3, 512, 1, 4, 256, 512, 0.0, [100, 700, 1100]),
+    "rgemma-256-ring": (2, 2048, 1, 10, 256, 2048, 0.0, [2047, 3000]),
+    "mqa16-128": (4, 700, 1, 16, 128, None, 0.0, [0, 64, 65, 699]),
+    "window-128": (4, 1024, 4, 8, 128, 100, 0.0, [50, 500, 1100, 1200]),
+}
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_cuda_decode_attn_matches_the_oracle(cuda_device, case, dtype,
+                                             offset):
+    """``offset`` 1 hands over q, k and v one element into their storage
+    (not 16-byte aligned); pos covers row 0, rings before and after they
+    wrap, and intervals left empty (every row weighs alike)."""
+    b, length, kv, h, hd, window, softcap, pos = ATTN_CASES[case]
+    q, k, v, pos = _attn_inputs(b, length, kv, h, hd, pos, dtype,
+                                cuda_device, len(case), offset)
+    got = attn_k.decode_attn(q, k, v, pos, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    _check_attn(got, q, k, v, pos, window, softcap)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma3-1b",
+                                  "recurrentgemma-2b"])
+def test_cuda_engine_step_launches_decode_attn_twice_a_layer(cuda_device,
+                                                             arch):
+    """Every attention layer of an ``Engine.step`` on the card goes
+    through the kernel: two launches a layer with a K/V cache."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm
+    from repro_torch.serve.engine import Engine, Request
+    cfg = _tiny_f32(arch)
+    p = init_lm(torch.Generator(cuda_device).manual_seed(0), cfg,
+                device=cuda_device)
+    engine = Engine(cfg, p, batch_slots=4, cache_len=16, device=cuda_device)
+    for rid in range(4):
+        engine.submit(Request(rid, np.arange(rid + 2), max_new=4))
+    layers = sum("kv" in blk for group in engine.state
+                 for blk in group.values())
+    assert layers > 0
+    for _ in range(3):
+        ops.reset_launch_counts()
+        engine.step()
+        assert ops.launch_counts()["decode_attn"] == 2 * layers
 
 
 def _tiny_f32(arch):

@@ -157,6 +157,54 @@ def test_cache_update_in_place_equals_the_functional_update():
         assert y.shape == (3, 1, tc.d_model)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-32b", "gemma3-1b",
+                                  "grok-1-314b"])
+def test_decode_attention_on_a_plain_cache_goes_through_the_kernel_wrapper(
+        arch, monkeypatch):
+    """``decode_attention`` on a cache that is not a DTensor calls
+    ``kernels.ops.decode_attention`` once a step (its plain version on the
+    CPU) and gives what the validity mask over the whole cache gave
+    through ``_sdpa``: 20 steps over an 8-row cache, slots 0, 3 and 9 rows
+    apart (gemma3's local ring wraps and then leaves its window; grok's
+    softcap).  Float32, rtol/atol 1e-5: the same float32 arithmetic summed
+    in another order."""
+    _, tc = cfg_pair(arch, "f32")
+    p = tinit_lm(torch.Generator().manual_seed(0), tc,
+                 device="cpu")["groups"][0]["b0"]["attn"]
+    window = tc.window if arch == "gemma3-1b" else None
+    calls = []
+    real = tattn.kernel_ops.decode_attention
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(tattn.kernel_ops, "decode_attention", spy)
+    rng = np.random.default_rng(5)
+    cache = tattn.init_kv_cache(tc, 3, 8, device="cpu")
+    rows = torch.arange(3)
+    for step in range(20):
+        x = torch.from_numpy(rng.standard_normal(
+            (3, 1, tc.d_model)).astype(np.float32))
+        pos = torch.tensor([step, step + 3, step + 9], dtype=torch.int32)
+        q = tattn._project_q(p, x, tc, pos[:, None])
+        k_new, v_new = tattn._project_kv(p, x, tc, pos[:, None])
+        k, v = cache["k"].clone(), cache["v"].clone()
+        k[rows, (pos % 8).long()] = k_new[:, 0]
+        v[rows, (pos % 8).long()] = v_new[:, 0]
+        slots = torch.arange(8)[None, :]
+        written = slots <= pos[:, None]
+        if window is not None:
+            written &= slots > pos[:, None] - window
+        want = tattn._project_out(tattn._sdpa(
+            q, k, v, written[:, None, None, None, :], tc,
+            kv_seq="cache_seq"), p, tc)
+        y, _ = tattn.decode_attention(p, x, pos, cache, tc, window=window)
+        close(y, want.numpy(), (1e-5, 1e-5))
+    assert len(calls) == 20
+    assert all(c == {"window": window, "softcap": tc.logits_softcap}
+               for c in calls)
+
+
 def test_engine_gives_the_reference_engines_tokens():
     """deepseek-7b tiny in float32, 8 slots, cache 128, the serve_engine
     example's 16 requests (two of 192 tokens wrap the 128-slot ring)."""
