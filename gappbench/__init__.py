@@ -5,7 +5,10 @@ once in a fresh process: ``python3 gappbench/run.py --workload <cell>
 --seed <n> --seconds <s> --trace <0|1>``.  Everything is found by name:
 
 * ``configs/<config>.json``: a model configuration as it is run, with its
-  published source, what was cut and what was assumed;
+  published source, what was cut and what was assumed, and its ``family``;
+* ``families/<family>.py`` and ``reference/<family>.py``: an architecture's
+  shapes, parameter and cache layout and counts, and its plain reference
+  (see ``cell.py``);
 * ``traffic/<traffic>.json``: the parameters of one job (the entry it
   drives, its sizes, whether a GAPP session is attached), read by the one
   generator in ``traffic/generate.py``;

@@ -1,13 +1,40 @@
 """Loading a cell by name: its workload, configuration and traffic files,
-and the metrics ``BENCHMARK.json`` asks of it."""
+the configuration's family, and the metrics ``BENCHMARK.json`` asks of
+it.
+
+A configuration file names its ``family`` (``llama`` when it names none):
+the module ``families/<family>.py`` (a ``-`` in the name is a ``_`` in the
+file's), loaded by path, that holds everything about that architecture
+the harness needs, and whose plain reference is
+``reference/<family>.py``.  A family module supplies:
+
+* ``NAME`` and ``Shape``: a frozen dataclass of the configuration's sizes
+  with a ``family`` field (the family's name), built by
+  ``shape(config_dict)``; it goes into the run's record;
+* ``model_config(shape, name)``: the port's ``ModelConfig``;
+* ``leaf_specs(shape)``: ``(path, shape, scale)`` of every parameter in a
+  fixed order, in the port's tree layout (``scale`` None: a norm scale),
+  and ``FLOAT32_LEAVES``, the leaf names kept in float32 whatever the
+  serving dtype;
+* ``cache_layers(shape, cache_len)``: one :class:`CacheLayer` an attention
+  layer, in the order the layers run;
+* ``make_bank(shape, seed, cache_len, device)``: the prompts' K/V, one
+  ``(rows, kv_heads, head_dim)`` k and v a cache layer;
+* the yardstick's counts: ``matmul_params``, ``param_count``,
+  ``decode_counts(shape, slots, rows, positions)`` and
+  ``train_counts(shape, batch, seq)``.
+"""
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import pathlib
+import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_FAMILY = "llama"
 
 
 def _load(kind: str, name: str) -> dict:
@@ -18,34 +45,42 @@ def _load(kind: str, name: str) -> dict:
 
 
 @dataclasses.dataclass(frozen=True)
-class Shape:
-    """A configuration's sizes, as the yardstick and the reference use
-    them (names follow the published config.json)."""
+class CacheLayer:
+    """Where one attention layer's decode cache sits in the engine's
+    state (``engine.state[group][block]["kv"]``) and how many rows it has:
+    the whole cache, or a ring of the window's rows.  Position ``p`` lies
+    at row ``p % rows`` either way (a ring holds the last ``rows``
+    positions), and its prompt K/V is the bank's row ``(p + offset) %
+    rows`` of that layer."""
 
-    layers: int
-    d: int
-    heads: int
-    kv_heads: int
-    head_dim: int
-    d_ff: int
-    vocab: int
-    rope_theta: float
-    eps: float
-    frontend_dim: int = 0
-    prefix: int = 0
+    group: int
+    block: str
+    rows: int
 
-    @classmethod
-    def from_config(cls, c: dict) -> "Shape":
-        v = c.get("vision") or {}
-        return cls(layers=c["num_hidden_layers"], d=c["hidden_size"],
-                   heads=c["num_attention_heads"],
-                   kv_heads=c["num_key_value_heads"],
-                   head_dim=c["hidden_size"] // c["num_attention_heads"],
-                   d_ff=c["intermediate_size"], vocab=c["vocab_size"],
-                   rope_theta=float(c["rope_theta"]),
-                   eps=float(c["rms_norm_eps"]),
-                   frontend_dim=v.get("frontend_dim", 0),
-                   prefix=v.get("num_prefix", 0))
+
+def family(name: str):
+    """The family module ``families/<name>.py``, loaded once by path."""
+    stem = name.replace("-", "_")
+    mod_name = "gappbench_family_" + stem
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
+    path = HERE / "families" / f"{stem}.py"
+    if not path.is_file():
+        raise SystemExit(f"gappbench: no family file {path.name}")
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # a dataclass's module has to be in sys.modules as it is made
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family_of(shape):
+    return family(shape.family)
+
+
+#: the ``llama`` family's shape, under the name the records and tests use
+Shape = family(DEFAULT_FAMILY).Shape
 
 
 @dataclasses.dataclass
@@ -54,7 +89,7 @@ class Cell:
     config_name: str
     traffic: dict
     limits: dict
-    shape: Shape
+    shape: object                # the family's Shape
     end_to_end: list | None      # metric names BENCHMARK.json asks for;
     per_layer: list | None       # None: every reader that finds a value
 
@@ -76,18 +111,12 @@ def load(cell: str) -> Cell:
             e2e = _metric_names(bench, "end_to_end", cell)
             per_layer = _metric_names(bench, "per_layer", cell)
     return Cell(cell, w["config"], traffic,
-                w.get("limits", {}), Shape.from_config(config), e2e,
-                per_layer)
+                w.get("limits", {}),
+                family(config.get("family", DEFAULT_FAMILY)).shape(config),
+                e2e, per_layer)
 
 
-def model_config(shape: Shape, name: str):
+def model_config(shape, name: str):
     """The port's ``ModelConfig`` for ``shape`` (bf16 compute over float32
     parameters, remat on: the port's defaults)."""
-    from repro_torch.models.common import ModelConfig
-    return ModelConfig(
-        name=name, family="vlm" if shape.frontend_dim else "dense",
-        num_layers=shape.layers, d_model=shape.d, num_heads=shape.heads,
-        num_kv_heads=shape.kv_heads, d_ff=shape.d_ff,
-        vocab_size=shape.vocab, block_pattern=("dense",),
-        rope_theta=shape.rope_theta, frontend_dim=shape.frontend_dim,
-        num_prefix=shape.prefix)
+    return family_of(shape).model_config(shape, name)

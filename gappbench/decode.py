@@ -13,6 +13,12 @@ benchmark stands in for the prefill stage of a disaggregated deployment:
 when a request takes a slot, the rows its predecessor wrote are given back
 their prompt K/V (the slot's rows of the bank, rotated by the slot's
 offset), so every request decodes over its own prompt's rows.
+
+Where each layer's cache sits and how many rows it has is the
+configuration's family's (``cell.CacheLayer``): position ``p`` lies at
+row ``p % rows`` of a layer, so a ring of a window's rows holds the last
+of a prompt's positions, and its prompt K/V is the layer's bank row
+``(p + offset) % rows``.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ class Live:
 
     engine: object
     session: object
+    layout: list          # the family's cell.CacheLayer, one a layer
     bank: tuple
     offsets: np.ndarray
     pending: list
@@ -45,36 +52,49 @@ class Live:
     drain_s: list = dataclasses.field(default_factory=list)
 
 
-def _kv(engine, layer: int) -> tuple:
-    kv = engine.state[layer]["b0"]["kv"]
+def _kv(engine, c) -> tuple:
+    kv = engine.state[c.group][c.block]["kv"]
     return kv["k"], kv["v"]
 
 
 def _restore(live: Live, slot: int, lo: int, hi: int) -> None:
-    """Give rows [lo, hi) of ``slot`` back their prompt K/V."""
+    """Give positions [lo, hi) of ``slot`` back their prompt K/V, in each
+    layer at the rows that hold them (a ring's, the last of them)."""
     if hi <= lo:
         return
     bk, bv = live.bank
-    rows = bk.shape[1]
-    idx = (torch.arange(lo, hi, device=bk.device) + int(live.offsets[slot])) \
-        % rows
-    for layer in range(bk.shape[0]):
-        k, v = _kv(live.engine, layer)
-        k[slot, lo:hi] = bk[layer, idx]
-        v[slot, lo:hi] = bv[layer, idx]
+    off = int(live.offsets[slot])
+    idx = {}
+    for layer, c in enumerate(live.layout):
+        a = max(lo, hi - c.rows)
+        if c.rows not in idx:
+            bank_rows = torch.arange(a, hi, device=bk[layer].device)
+            at = a % c.rows
+            cache_rows = slice(at, at + hi - a) if at + hi - a <= c.rows \
+                else bank_rows % c.rows
+            idx[c.rows] = ((bank_rows + off) % c.rows, cache_rows)
+        src, dst = idx[c.rows]
+        k, v = _kv(live.engine, c)
+        k[slot, dst] = bk[layer][src]
+        v[slot, dst] = bv[layer][src]
 
 
 def _fill(live: Live) -> None:
     """Every slot's whole cache from the bank (rotated by its offset)."""
     bk, bv = live.bank
-    rows = bk.shape[1]
-    for layer in range(bk.shape[0]):
-        k, v = _kv(live.engine, layer)
+    for layer, c in enumerate(live.layout):
+        k, v = _kv(live.engine, c)
+        rows = c.rows
+        if k.shape[1] != rows or bk[layer].shape[0] != rows:
+            raise RuntimeError(
+                f"cache layer {c}: the engine holds {k.shape[1]} rows and "
+                f"the bank {bk[layer].shape[0]}")
         for slot, off in enumerate(live.offsets.tolist()):
-            k[slot, :rows - off] = bk[layer, off:]
-            k[slot, rows - off:] = bk[layer, :off]
-            v[slot, :rows - off] = bv[layer, off:]
-            v[slot, rows - off:] = bv[layer, :off]
+            off %= rows
+            k[slot, :rows - off] = bk[layer][off:]
+            k[slot, rows - off:] = bk[layer][:off]
+            v[slot, :rows - off] = bv[layer][off:]
+            v[slot, rows - off:] = bv[layer][:off]
 
 
 def _wrap_step(live: Live) -> None:
@@ -108,6 +128,7 @@ def setup(cell, seed: int, device) -> Live:
                     cache_len=mix["cache_len"], gapp=session, device=device)
     rng = np.random.default_rng([seed, 7])
     live = Live(engine, session,
+                cell_lib.family_of(s).cache_layers(s, mix["cache_len"]),
                 weights.make_bank(s, seed, mix["cache_len"], device),
                 rng.integers(0, mix["cache_len"], size=mix["slots"]),
                 generate.decode_requests(mix, seed, s.vocab)[::-1])
@@ -143,24 +164,28 @@ def _admit(live: Live) -> None:
         live.slot_of[r["rid"]] = (slot, r)
 
 
-def _one_step(live: Live) -> tuple[int, int]:
-    """Admit, then one engine step; ``(tokens, rows)``: the tokens it
-    emitted and the cache rows its slots attend."""
+def _one_step(live: Live) -> tuple[int, int, list]:
+    """Admit, then one engine step; ``(tokens, rows, positions)``: the
+    tokens it emitted, the cache rows its slots attend in a whole cache
+    and the positions its slots decode at."""
     _admit(live)
     engine = live.engine
     tokens = rows = 0
+    positions = []
     for req in engine.active:
         if req is not None:
             tokens += 1
-            rows += len(req.prompt) + len(req.out)
+            n = len(req.prompt) + len(req.out)
+            rows += n
+            positions.append(n - 1)
     for req in engine.step():
         live.finished.append(req)
-    return tokens, rows
+    return tokens, rows, positions
 
 
 def window(live: Live, seconds: float, mark=None) -> dict:
     """Steps until ``seconds`` have passed; the window's record."""
-    step_s, toks, rows = [], [], []
+    step_s, toks, rows, positions = [], [], [], []
     n_done0 = len(live.finished)
     t0 = time.perf_counter()
     last = t0
@@ -168,17 +193,19 @@ def window(live: Live, seconds: float, mark=None) -> dict:
     while last < t_end:
         if mark is not None:
             with mark("gappbench/engine.step"):
-                n, r = _one_step(live)
+                n, r, pos = _one_step(live)
         else:
-            n, r = _one_step(live)
+            n, r, pos = _one_step(live)
         now = time.perf_counter()
         step_s.append(now - last)
         toks.append(n)
         rows.append(r)
+        positions.append(pos)
         last = now
     done = live.finished[n_done0:]
     return {"entry": "decode", "window_s": last - t0, "step_s": step_s,
-            "tokens": toks, "rows": rows, "issue_s": list(live.issue_s),
+            "tokens": toks, "rows": rows, "positions": positions,
+            "issue_s": list(live.issue_s),
             "drain_s": list(live.drain_s),
             "attempted": len(done),
             "failed": sum(len(r.out) != r.max_new for r in done)}
@@ -216,32 +243,44 @@ def reference_gaps(cell, seed: int, device, closed: dict, bank, offsets,
     ``fp8``: the control), the widest gap over the checked requests by
     which a token lies below the float32 reference's best logit: the
     program's served token for ``plain``, the control's first choice at
-    the same position for ``fp8``."""
+    the same position for ``fp8``.  Under ``untied`` the same over each
+    request's tokens before the first that the reference routes by a tie
+    (``ties`` of the family's ``decode_logits``; a family that routes
+    nothing has none): from there on, the program may rightly have routed
+    otherwise, and its cache rows then differ too."""
     ref.no_tf32()
     s = cell.shape
     params = weights.make_params(s, seed, torch.bfloat16, device)
     bk, bv = bank
-    rows = bk.shape[1]
+    layers = range(len(bk))
     gaps = {name: 0.0 for name in mm_names}
-    n_tokens = 0
+    untied = dict(gaps)
+    n_tokens = n_untied = 0
     for rid, out in sample(closed["finished"], seed,
                            cell.traffic["check"]["requests"]):
         slot, r = closed["slot_of"][rid]
         start = r["start"]
-        idx = (torch.arange(start, device=device) + int(offsets[slot])) % rows
+        at = torch.arange(start, device=device) + int(offsets[slot])
+        ctx_k = [bk[i][at % bk[i].shape[0]] for i in layers]
+        ctx_v = [bv[i][at % bv[i].shape[0]] for i in layers]
         tokens = torch.tensor([r["last_token"]] + out[:-1], device=device)
         served = torch.tensor(out, device=device)
+        ties: list = []
         with torch.no_grad():
-            logits = ref.decode_logits(params, tokens, start, bk[:, idx],
-                                       bv[:, idx], s)
-            if "plain" in gaps:
-                gaps["plain"] = max(gaps["plain"],
-                                    ref.widest_gap(logits, served))
+            logits = ref.decode_logits(params, tokens, start, ctx_k, ctx_v,
+                                       s, ties=ties)
+            chosen = {"plain": served}
             if "fp8" in gaps:
-                low = ref.decode_logits(params, tokens, start, bk[:, idx],
-                                        bv[:, idx], s, mm=ref.fp8_mm)
-                gaps["fp8"] = max(gaps["fp8"], ref.widest_gap(
-                    logits, low.argmax(dim=-1)))
+                chosen["fp8"] = ref.decode_logits(
+                    params, tokens, start, ctx_k, ctx_v, s,
+                    mm=ref.fp8_mm).argmax(dim=-1)
+        cut = min(ties, default=len(out))
+        for name in gaps:
+            gaps[name] = max(gaps[name], ref.widest_gap(logits, chosen[name]))
+            if cut:
+                untied[name] = max(untied[name], ref.widest_gap(
+                    logits[:cut], chosen[name][:cut]))
         n_tokens += len(out)
-    gaps["tokens"] = n_tokens
+        n_untied += cut
+    gaps.update(tokens=n_tokens, untied=untied, tokens_untied=n_untied)
     return gaps

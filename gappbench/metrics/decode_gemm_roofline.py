@@ -17,7 +17,5 @@ def read(rec):
     t = _products.seconds(rec["trace"])
     if t <= 0:
         return None
-    s = rec["shape"]
-    bound = sum(ys.decode_step(s, n, r)["w_bound_s"]
-                for n, r in zip(rec["tokens"], rec["rows"]))
+    bound = sum(d["w_bound_s"] for d in ys.decode_steps(rec))
     return 100.0 * bound / t

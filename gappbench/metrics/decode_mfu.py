@@ -11,7 +11,5 @@ UNIT = "%"
 def read(rec):
     if rec["entry"] != "decode" or rec["trace"] is None:
         return None
-    s = rec["shape"]
-    bound = sum(ys.decode_step(s, n, r)["bound_s"]
-                for n, r in zip(rec["tokens"], rec["rows"]))
+    bound = sum(d["bound_s"] for d in ys.decode_steps(rec))
     return 100.0 * bound / rec["window_s"]

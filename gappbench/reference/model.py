@@ -1,168 +1,47 @@
-"""The plain reference of the two configurations: a llama-style decoder
-(pre-norm RMSNorm, rotary attention with grouped K/V, SwiGLU) with an
-optional projected patch prefix, in float32 PyTorch with TF32 off.
+"""The plain reference, by the configuration's family: ``lm_loss`` and
+``decode_logits`` run the module ``reference/<family>.py`` of the shape's
+family (a ``-`` in the name is a ``_`` in the file's); the products,
+norms and the logit gap are :mod:`gappbench.reference.common`'s.
 
-It follows the configurations' published description, with the port's
-parameterisation of the norms (``x / rms(x) * (1 + scale)``, eps from the
-configuration file) and the rotary form that rotates the two halves of a
-head (``rotate_half``).  It imports nothing of the port: the weights are
-the benchmark's, given as a tree of the port's keys, and read here by
-path.
-
-``mm`` is the product every matrix multiplication goes through: ``a @ b``
-for the reference, a lower-precision emulation for the control
-(:func:`fp8_mm`).
+Every family's reference is float32 PyTorch with TF32 off and imports
+nothing of the port: the weights are the benchmark's, given as a tree of
+the port's keys.  ``mm`` is the product every matrix multiplication goes
+through: ``a @ b`` for the reference, a lower-precision emulation for
+the control (:func:`fp8_mm`).
 """
 from __future__ import annotations
 
-import math
+import importlib
 
-import torch
-import torch.nn.functional as F
-import torch.utils.checkpoint
-
-from gappbench.cell import Shape
+from gappbench.reference.common import (  # noqa: F401
+    fp8_mm, no_tf32, plain_mm, rope, widest_gap)
 
 
-def no_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def family_reference(s):
+    """The reference module of ``s``'s family."""
+    return importlib.import_module(
+        "gappbench.reference." + s.family.replace("-", "_"))
 
 
-def plain_mm(a, b):
-    return a @ b
+def lm_loss(params, tokens, frontend, s, mm=plain_mm, remat: bool = True,
+            keep_rows=None):
+    """The training objective over a batch of ``tokens`` (and a patch
+    prefix ``frontend``, or None): mean next-token cross entropy, plus
+    what the family adds (a router's auxiliary loss).  ``keep_rows``: the
+    batch rows the loss is averaged over (a fault that leaves rows
+    out)."""
+    return family_reference(s).lm_loss(params, tokens, frontend, s, mm=mm,
+                                       remat=remat, keep_rows=keep_rows)
 
 
-def _q8(t, dim=None):
-    """Round to float8 e4m3 with a scale per tensor (``dim`` None) or per
-    slice along ``dim``; straight through in the backward."""
-    amax = t.detach().abs().amax() if dim is None else \
-        t.detach().abs().amax(dim=dim, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 448.0
-    q = (t.detach() / scale).to(torch.float8_e4m3fn).to(t.dtype) * scale
-    return t + (q - t).detach()
-
-
-def fp8_mm(a, b):
-    """The control's product: both operands rounded to float8 e4m3 (``a``
-    per row, ``b`` per column), multiplied in float32."""
-    return _q8(a, -1) @ _q8(b, -2)
-
-
-def rms_norm(x, scale, eps: float):
-    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) \
-        * (1.0 + scale)
-
-
-def rope(x, pos, theta: float):
-    """x: (..., S, H, hd); pos: (S,) float positions."""
-    half = x.shape[-1] // 2
-    freq = theta ** (-torch.arange(half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = (pos[:, None] * freq)[:, None, :]          # (S, 1, half)
-    sin, cos = torch.sin(ang), torch.cos(ang)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _f32(t):
-    return t.float()
-
-
-def attention(p, h, pos, s: Shape, mm, ctx=None, rows_from: int = 0):
-    """Causal attention of h (B, S, D) at positions ``pos`` (S,).  ``ctx``:
-    (k, v) of (B, C, KV, hd) rows that every position sees (a decode
-    cache's prompt rows), placed before the new rows; ``rows_from`` the
-    position of the first new row."""
-    b, n, _ = h.shape
-    hd, g = s.head_dim, s.heads // s.kv_heads
-    q = rope(mm(h, _f32(p["wq"])).reshape(b, n, s.heads, hd), pos,
-             s.rope_theta)
-    k = rope(mm(h, _f32(p["wk"])).reshape(b, n, s.kv_heads, hd), pos,
-             s.rope_theta)
-    v = mm(h, _f32(p["wv"])).reshape(b, n, s.kv_heads, hd)
-    c = 0
-    if ctx is not None:
-        c = ctx[0].shape[1]
-        k = torch.cat([ctx[0], k], dim=1)
-        v = torch.cat([ctx[1], v], dim=1)
-    k = k.repeat_interleave(g, dim=2).transpose(1, 2)    # (B, H, C+S, hd)
-    v = v.repeat_interleave(g, dim=2).transpose(1, 2)
-    q = q.transpose(1, 2) * (hd ** -0.5)                 # (B, H, S, hd)
-    scores = mm(q, k.transpose(-1, -2))
-    cols = torch.arange(c + n, device=h.device)
-    allowed = cols[None, :] <= (c + torch.arange(n, device=h.device))[:, None]
-    scores = scores.masked_fill(~allowed, float("-inf"))
-    out = mm(torch.softmax(scores, dim=-1), v)           # (B, H, S, hd)
-    out = out.transpose(1, 2).reshape(b, n, s.heads * hd)
-    return mm(out, _f32(p["wo"]))
-
-
-def mlp(p, h, mm):
-    return mm(F.silu(mm(h, _f32(p["gate"]))) * mm(h, _f32(p["up"])),
-              _f32(p["down"]))
-
-
-def layer(p, x, pos, s: Shape, mm, ctx=None):
-    x = x + attention(p["attn"], rms_norm(x, _f32(p["ln1"]), s.eps), pos, s,
-                      mm, ctx)
-    return x + mlp(p["ffn"], rms_norm(x, _f32(p["ln2"]), s.eps), mm)
-
-
-def _embed(params, tokens, frontend, mm):
-    x = _f32(params["embed"])[tokens.long()]
-    if frontend is not None:
-        x = torch.cat([mm(frontend.float(), _f32(params["frontend"])), x],
-                      dim=1)
-    return x
-
-
-def lm_loss(params, tokens, frontend, s: Shape, mm=plain_mm,
-            remat: bool = True, keep_rows=None):
-    """Mean next-token cross entropy over the tokens (the last of each row
-    has no target; the patch prefix has none).  ``remat`` recomputes each
-    layer in the backward, so a full-size step fits beside its state.
-    ``keep_rows``: the batch rows the loss is averaged over (a fault that
-    leaves rows out)."""
-    if keep_rows is not None:
-        tokens = tokens[keep_rows]
-        frontend = None if frontend is None else frontend[keep_rows]
-    x = _embed(params, tokens, frontend, mm)
-    pos = torch.arange(x.shape[1], device=x.device, dtype=torch.float32)
-    for p in params["groups"]:
-        blk = p["b0"]
-        if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                layer, blk, x, pos, s, mm, use_reentrant=False)
-        else:
-            x = layer(blk, x, pos, s, mm)
-    x = x[:, -tokens.shape[1]:]
-    x = rms_norm(x, _f32(params["final_norm"]), s.eps)
-    logits = mm(x[:, :-1], _f32(params["lm_head"]))
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tokens[:, 1:].reshape(-1).long())
-
-
-def decode_logits(params, tokens, start: int, ctx_k, ctx_v, s: Shape,
-                  mm=plain_mm):
+def decode_logits(params, tokens, start: int, ctx_k, ctx_v, s, mm=plain_mm,
+                  ties=None):
     """Logits (n, V) at positions start .. start+n-1 of one sequence whose
-    tokens there are ``tokens`` (n,), over prompt rows ``ctx_k[l]``,
-    ``ctx_v[l]`` (start, KV, hd) of each layer: a prefill of the new
-    tokens against the prompt's cache."""
-    x = _f32(params["embed"])[tokens.long()][None]
-    pos = start + torch.arange(tokens.shape[0], device=x.device,
-                               dtype=torch.float32)
-    for i, p in enumerate(params["groups"]):
-        ctx = (ctx_k[i][None].float(), ctx_v[i][None].float())
-        x = layer(p["b0"], x, pos, s, mm, ctx)
-    x = rms_norm(x[0], _f32(params["final_norm"]), s.eps)
-    return mm(x, _f32(params["lm_head"]))
-
-
-def widest_gap(logits, chosen) -> float:
-    """The widest gap by which a chosen token's logit lies below the best
-    logit of its row."""
-    best = logits.max(dim=-1).values
-    got = logits.gather(-1, chosen.long()[:, None])[:, 0]
-    gap = (best - got).max()
-    return float(gap) if math.isfinite(float(gap)) else float("inf")
+    tokens there are ``tokens`` (n,), over the prompt's rows ``ctx_k[i]``,
+    ``ctx_v[i]`` (start, KV, hd) at positions 0 .. start-1 of each cache
+    layer ``i``: a prefill of the new tokens against the prompt's cache.
+    ``ties``: a list that gets the index of every token the family's
+    reference routes by a margin too small for the program's precision to
+    keep (none where the family routes nothing)."""
+    return family_reference(s).decode_logits(params, tokens, start, ctx_k,
+                                             ctx_v, s, mm=mm, ties=ties)

@@ -85,10 +85,12 @@ def check_decode(cell, seed, device, closed, keep, controls) -> tuple:
     names = ("plain", "fp8") if "control" in controls else ("plain",)
     g = decode.reference_gaps(cell, seed, device, closed, bank, offsets,
                               mm_names=names)
-    nums = {"program": {"logit_gap": g["plain"]}}
-    if "control" in controls:
-        nums["control"] = {"logit_gap": g["fp8"]}
-    return nums, {"tokens_checked": g["tokens"]}
+    nums = {mode: {"logit_gap": g[name],
+                   "logit_gap_untied": g["untied"][name]}
+            for mode, name in (("program", "plain"), ("control", "fp8"))
+            if name in names}
+    return nums, {"tokens_checked": g["tokens"],
+                  "tokens_untied": g["tokens_untied"]}
 
 
 def check_train(cell, seed, device, closed, controls) -> tuple:

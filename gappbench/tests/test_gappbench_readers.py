@@ -86,7 +86,7 @@ def test_untraced_records_give_no_device_metric(decode_traced):
 
 def test_every_listed_metric_is_read_in_its_cells(decode_traced,
                                                  train_traced):
-    for cell, rec in (("ds7b8-decode-c4k-gapp", decode_traced),
+    for cell, rec in (("ds7b8-decode-c4k-nogapp", decode_traced),
                       ("ivl2-train-s4k-gapp", train_traced)):
         c = cell_lib.load(cell)
         assert set(run.read_metrics(c.per_layer, rec)) == set(c.per_layer)

@@ -246,8 +246,11 @@ def test_the_accepted_readers_read_what_they_read_before(name):
                for m in spanrun.SPAN_METRICS)
 
 
+# record: (the benchmark's cell whose listed metrics it must give, the
+# span metrics it reads); the first is a GAPP decode run's record, held to
+# the decode cell's list
 SPAN_RECORDS = {
-    "decode-spans.rec.json": ("ds7b8-decode-c4k-gapp", {
+    "decode-spans.rec.json": ("ds7b8-decode-c4k-nogapp", {
         "decode_attn_ms", "decode_submit_ms", "gapp_drain_device_ms.decode",
         "gapp_drain_idle.decode"}),
     "decode-nogapp-spans.rec.json": ("ds7b8-decode-c4k-nogapp", {

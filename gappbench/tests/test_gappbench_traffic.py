@@ -35,6 +35,29 @@ def test_every_seed_runs_the_same_sizes_in_another_order():
     assert first != other
 
 
+def test_a_shuffle_block_gives_every_seed_the_same_sizes_block_by_block():
+    block = MIX["shuffle_block"]
+    runs = [[(r["start"], r["max_new"]) for r in
+             generate.decode_requests(MIX, s, 102400)]
+            for s in (1, SEED, 3 * SEED)]
+    for i in range(0, MIX["requests"], block):
+        blocks = [sorted(run[i:i + block]) for run in runs]
+        assert blocks[0] == blocks[1] == blocks[2]
+    assert runs[0][:block] != runs[1][:block]
+    # the fixed order mixes the sizes: no block holds only short prompts
+    lo, hi = MIX["start_pos"]
+    means = [(np.mean([st for st, _ in runs[0][i:i + block]]) - lo)
+             / (hi - lo) for i in range(0, MIX["requests"], block)]
+    assert min(means) > 0.35 and max(means) < 0.65
+    # without the key, the seed orders the whole list
+    whole = {k: v for k, v in MIX.items() if k != "shuffle_block"}
+    a = [(r["start"], r["max_new"]) for r in
+         generate.decode_requests(whole, 1, 102400)[:block]]
+    b = [(r["start"], r["max_new"]) for r in
+         generate.decode_requests(whole, SEED, 102400)[:block]]
+    assert sorted(a) != sorted(b)
+
+
 def test_request_sizes_keep_to_the_mix():
     start, new = generate.request_sizes(MIX)
     lo, hi = MIX["start_pos"]

@@ -3,7 +3,10 @@ mix's parameters and the run's seed.
 
 Decode: the set of request sizes is fixed by the mix (quantiles of its
 distributions, paired by a fixed permutation), so every seed runs the same
-sizes; the seed orders them and draws the tokens.  A request's start
+sizes; the seed orders them and draws the tokens.  With ``shuffle_block``
+in the mix the sizes stand in one fixed order, and the seed orders only
+the requests inside each block of that many: a window that takes the
+first blocks then gets the same sizes whatever the seed.  A request's start
 position is its prompt's length less one: the engine decodes from the
 prompt's last token, over cache rows that hold the prompt's K/V.
 
@@ -37,12 +40,23 @@ def request_sizes(mix: dict) -> tuple[np.ndarray, np.ndarray]:
     return start, new
 
 
+# the fixed order of the sizes under ``shuffle_block``
+BLOCK_ORDER_SEED = 1
+
+
 def decode_requests(mix: dict, seed: int, vocab: int) -> list[dict]:
     """The run's requests, in the order they are submitted."""
     start, new = request_sizes(mix)
+    n = len(start)
     rng = np.random.default_rng(seed)
-    order = rng.permutation(len(start))
-    last = rng.integers(0, vocab, size=len(start))
+    block = mix.get("shuffle_block")
+    if block is None:
+        order = rng.permutation(n)
+    else:
+        fixed = np.random.default_rng(BLOCK_ORDER_SEED).permutation(n)
+        order = np.concatenate([rng.permutation(fixed[i:i + block])
+                                for i in range(0, n, block)])
+    last = rng.integers(0, vocab, size=n)
     return [{"rid": i, "start": int(start[j]), "max_new": int(new[j]),
              "last_token": int(last[i])} for i, j in enumerate(order)]
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from gappbench import cell as cell_lib
-from gappbench import gapp_check, weights
+from gappbench import gapp_check, weights, yardstick
 from gappbench.reference import adamw as ref_adamw
 from gappbench.reference import model as ref
 from gappbench.traffic import generate
@@ -39,7 +39,7 @@ class WindowClosed(Exception):
 class Live:
     trainer: object
     session: object
-    shape: cell_lib.Shape
+    shape: object                 # the family's Shape
     seed: int
     device: torch.device
     check_steps: int
@@ -166,7 +166,8 @@ def run(live: Live, seconds: float, mark=None) -> dict:
         raise RuntimeError("the trainer stopped before the window closed")
     tr = live.trainer
     steps = len(live.entries) - 1
-    positions = tr.tcfg.batch_per_host * (tr.tcfg.seq_len + live.shape.prefix)
+    positions = yardstick.train_step(live.shape, tr.tcfg.batch_per_host,
+                                     tr.tcfg.seq_len)["positions"]
     losses = [h["loss"] for h in tr.history[live.check_steps:]]
     return {"entry": "train", "window_s": live.t_close - live.t_open,
             "steps": steps, "positions": positions,

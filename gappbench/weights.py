@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from gappbench.cell import Shape
+from gappbench import cell as cell_lib
 
 _MIX = 0x9E3779B97F4A7C15
 
@@ -22,28 +22,11 @@ def leaf_seed(seed: int, index: int) -> int:
     return (seed * 1_000_003 + index * _MIX + 12_345) % (1 << 63)
 
 
-def leaf_specs(s: Shape) -> list[tuple[tuple, tuple, float | None]]:
-    """``(path, shape, scale)`` of every leaf in a fixed order; ``scale``
-    None marks a norm scale (a vector)."""
-    d, hd = s.d, s.head_dim
-    out = [(("embed",), (s.vocab, d), d ** -0.5),
-           (("final_norm",), (d,), None),
-           (("lm_head",), (d, s.vocab), d ** -0.5)]
-    if s.frontend_dim:
-        out.append((("frontend",), (s.frontend_dim, d),
-                    s.frontend_dim ** -0.5))
-    for layer in range(s.layers):
-        g = ("groups", layer, "b0")
-        out += [(g + ("ln1",), (d,), None), (g + ("ln2",), (d,), None),
-                (g + ("attn", "wq"), (d, s.heads * hd), d ** -0.5),
-                (g + ("attn", "wk"), (d, s.kv_heads * hd), d ** -0.5),
-                (g + ("attn", "wv"), (d, s.kv_heads * hd), d ** -0.5),
-                (g + ("attn", "wo"), (s.heads * hd, d),
-                 (s.heads * hd) ** -0.5),
-                (g + ("ffn", "gate"), (d, s.d_ff), d ** -0.5),
-                (g + ("ffn", "up"), (d, s.d_ff), d ** -0.5),
-                (g + ("ffn", "down"), (s.d_ff, d), s.d_ff ** -0.5)]
-    return out
+def leaf_specs(s) -> list[tuple[tuple, tuple, float | None]]:
+    """``(path, shape, scale)`` of every leaf in a fixed order, as the
+    configuration's family lays them out; ``scale`` None marks a norm
+    scale (a vector)."""
+    return cell_lib.family_of(s).leaf_specs(s)
 
 
 def draw_leaf(seed: int, index: int, shape: tuple, scale: float | None,
@@ -66,12 +49,15 @@ def _put(tree: dict, path: tuple, leaf) -> None:
     node[path[-1]] = leaf
 
 
-def make_params(s: Shape, seed: int, dtype, device) -> dict:
+def make_params(s, seed: int, dtype, device) -> dict:
     """The whole tree: matrices in ``dtype`` (bf16 for serving, float32
-    masters for training), norm scales in float32."""
+    masters for training) but for the family's ``FLOAT32_LEAVES``, norm
+    scales in float32."""
+    fam = cell_lib.family_of(s)
     tree: dict = {}
-    for i, (path, shape, scale) in enumerate(leaf_specs(s)):
-        _put(tree, path, draw_leaf(seed, i, shape, scale, dtype, device))
+    for i, (path, shape, scale) in enumerate(fam.leaf_specs(s)):
+        dt = torch.float32 if path[-1] in fam.FLOAT32_LEAVES else dtype
+        _put(tree, path, draw_leaf(seed, i, shape, scale, dt, device))
     return tree
 
 
@@ -81,12 +67,25 @@ def get(tree, path: tuple):
     return tree
 
 
-def make_bank(s: Shape, seed: int, rows: int, device) -> tuple:
-    """The decode cells' prompt K/V: per layer ``rows`` bf16 rows of k and
-    of v, (layers, rows, kv_heads, head_dim) each, standing for the
-    prompts' cache rows that a prefill stage hands the decode engine."""
+def make_bank(s, seed: int, rows: int, device) -> tuple:
+    """The decode cells' prompt K/V, standing for the prompts' cache rows
+    that a prefill stage hands the decode engine: ``(k, v)``, each one
+    (rows, kv_heads, head_dim) bf16 tensor a cache layer of the family's
+    ``cache_layers(s, rows)``, indexed by the layer (a stacked tensor
+    where the family keeps one)."""
+    return cell_lib.family_of(s).make_bank(s, seed, rows, device)
+
+
+def bank_for(layers: list, kv_heads: int, head_dim: int, seed: int,
+             device) -> tuple:
+    """A bank of each cache layer's own rows (``cell.CacheLayer``): one
+    generator from the seed, each layer's k then its v, in layer order."""
     gen = torch.Generator(device).manual_seed(leaf_seed(seed, 1 << 20))
-    shape = (s.layers, rows, s.kv_heads, s.head_dim)
-    k = torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
-    v = torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)
-    return k, v
+    ks, vs = [], []
+    for c in layers:
+        shape = (c.rows, kv_heads, head_dim)
+        ks.append(torch.randn(shape, generator=gen, device=device,
+                              dtype=torch.bfloat16))
+        vs.append(torch.randn(shape, generator=gen, device=device,
+                              dtype=torch.bfloat16))
+    return ks, vs
