@@ -20,6 +20,12 @@ the harness needs, and whose plain reference is
   layer, in the order the layers run;
 * ``make_bank(shape, seed, cache_len, device)``: the prompts' K/V, one
   ``(rows, kv_heads, head_dim)`` k and v a cache layer;
+* optionally, ``route_layers(shape)``: the ``(group, block)`` of every
+  layer that routes tokens to experts, in the order the layers run (like
+  ``cache_layers``).  A family that supplies it is judged in decode under
+  the program's own routing (``decode.RouteTap``, ``run.check_decode``),
+  and its reference's ``decode_logits`` takes ``routes``, ``route_gaps``,
+  ``reroute`` and ``own_route_gap`` (see ``reference/tiny_pattern.py``);
 * the yardstick's counts: ``matmul_params``, ``param_count``,
   ``decode_counts(shape, slots, rows, positions)`` and
   ``train_counts(shape, batch, seq)``.
@@ -114,6 +120,13 @@ def load(cell: str) -> Cell:
                 w.get("limits", {}),
                 family(config.get("family", DEFAULT_FAMILY)).shape(config),
                 e2e, per_layer)
+
+
+def route_layers(shape) -> list:
+    """``(group, block)`` of each expert layer of ``shape``'s family, in
+    the order the layers run; none where the family routes nothing."""
+    fam = family_of(shape)
+    return fam.route_layers(shape) if hasattr(fam, "route_layers") else []
 
 
 def model_config(shape, name: str):

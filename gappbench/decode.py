@@ -19,9 +19,15 @@ configuration's family's (``cell.CacheLayer``): position ``p`` lies at
 row ``p % rows`` of a layer, so a ring of a window's rows holds the last
 of a prompt's positions, and its prompt K/V is the layer's bank row
 ``(p + offset) % rows``.
+
+Where the family's layers route tokens to experts (``route_layers``), a
+:class:`RouteTap` keeps the experts the program chose at every step, from
+the first warm-up step on, and the check judges the served tokens under
+those choices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -50,6 +56,74 @@ class Live:
     submitted: int = 0
     issue_s: list = dataclasses.field(default_factory=list)
     drain_s: list = dataclasses.field(default_factory=list)
+    tap: object = None    # a RouteTap where the family routes to experts
+
+
+class RouteTap:
+    """The experts the program chose in each expert layer at each step,
+    held by reference: the tensors the program made, with no op, copy or
+    read on the host added to the step.
+
+    The port's ``moe_ffn`` hands each layer's choices ``top_e``
+    (slots, 1, top_k) to ``repro_torch.models.moe._dispatch``; while the
+    tap is open (a context manager, so that it is closed however the run
+    ends) that function is wrapped and each call's ``top_e`` kept.  A step
+    whose expert layers do not all show up, or that shows fewer rows than
+    the engine's slots (a rank's share of a sharded batch), raises: the
+    check cannot judge what it cannot see."""
+
+    def __init__(self, layers: list, slots: int):
+        self.layers, self.slots = layers, slots
+        self.calls: list = []
+        self.steps: list = []       # each step's choices, one an expert layer
+        self.first_step: dict = {}  # request id -> its first step's index
+        self._real = None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        real = self._real = moe._dispatch
+
+        def tap(x, top_e, *rest):
+            self.calls.append(top_e)
+            return real(x, top_e, *rest)
+        moe._dispatch = tap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._dispatch = self._real
+
+    def admit(self, rid) -> None:
+        """Request ``rid`` takes a slot before the next step."""
+        self.first_step[rid] = len(self.steps)
+
+    def take(self) -> None:
+        """Keep the step's choices, one tensor an expert layer in order."""
+        calls, self.calls = self.calls, []
+        if len(calls) != len(self.layers):
+            raise RuntimeError(
+                f"the program showed {len(calls)} expert layers' choices in "
+                f"a step; the family has {len(self.layers)}")
+        rows = {int(c.shape[0]) for c in calls}
+        if rows != {self.slots}:
+            raise RuntimeError(
+                f"the program's choices cover {sorted(rows)} rows a step; "
+                f"the engine has {self.slots} slots")
+        self.steps.append(calls)
+
+    def record(self) -> dict:
+        """What the check reads: every step's choices and where each
+        request's first step lies."""
+        return {"routes": self.steps, "first_step": dict(self.first_step)}
+
+
+def route_tap(cell):
+    """A :class:`RouteTap` for ``cell`` where its family routes tokens to
+    experts; otherwise a context that taps nothing."""
+    layers = cell_lib.route_layers(cell.shape)
+    if not layers:
+        return contextlib.nullcontext()
+    return RouteTap(layers, cell.traffic["slots"])
 
 
 def _kv(engine, c) -> tuple:
@@ -111,7 +185,9 @@ def _wrap_step(live: Live) -> None:
     engine._step = step
 
 
-def setup(cell, seed: int, device) -> Live:
+def setup(cell, seed: int, device, tap=None) -> Live:
+    """Weights, engine, caches and warm-up; ``tap``: the open
+    :class:`RouteTap` of a family that routes tokens to experts."""
     from repro_torch.core import ProfileSession
     from repro_torch.serve.engine import Engine
     mix, s = cell.traffic, cell.shape
@@ -134,6 +210,7 @@ def setup(cell, seed: int, device) -> Live:
                 generate.decode_requests(mix, seed, s.vocab)[::-1])
     _fill(live)
     _wrap_step(live)
+    live.tap = tap
     if session is not None:
         gapp_check.time_drains(session, live.drain_s)
         session.start()
@@ -162,6 +239,8 @@ def _admit(live: Live) -> None:
         _restore(live, slot, lo, hi)
         live.dirty[slot] = (r["start"], r["start"] + r["max_new"])
         live.slot_of[r["rid"]] = (slot, r)
+        if live.tap is not None:
+            live.tap.admit(r["rid"])
 
 
 def _one_step(live: Live) -> tuple[int, int, list]:
@@ -180,6 +259,8 @@ def _one_step(live: Live) -> tuple[int, int, list]:
             positions.append(n - 1)
     for req in engine.step():
         live.finished.append(req)
+    if live.tap is not None:
+        live.tap.take()
     return tokens, rows, positions
 
 
@@ -216,12 +297,14 @@ def close(live: Live) -> dict:
     the program's state is dropped."""
     out = {"finished": [(r.rid, list(r.out)) for r in live.finished],
            "slot_of": dict(live.slot_of), "gapp": None}
+    if live.tap is not None:
+        out.update(live.tap.record())
     if live.session is not None:
         cap = gapp_check.capture(live.session)
         why = gapp_check.capture_complete(cap, live.submitted,
                                           len(live.finished))
         out["gapp"] = (cap, why)
-    live.engine = live.session = None
+    live.engine = live.session = live.tap = None
     return out
 
 
@@ -237,50 +320,90 @@ def sample(finished: list, seed: int, k: int) -> list:
     return [finished[longest]] + [finished[rest[i]] for i in sorted(pick)]
 
 
+def request_routes(closed: dict, rid: int, slot: int, n: int):
+    """The experts the program chose for request ``rid``'s ``n`` tokens:
+    (n, expert layers, top_k), from its slot's rows of the steps it
+    decoded in."""
+    t0 = closed["first_step"][rid]
+    return torch.stack([torch.stack([r[slot, 0] for r in step])
+                        for step in closed["routes"][t0:t0 + n]])
+
+
+def wrong_route(logits, route):
+    """A fault planted in the routes: each token's last choice moved to
+    the expert the reference ranks last."""
+    out = route.clone()
+    out[..., -1] = logits.argmin(dim=-1)
+    return out
+
+
+def _logits(seq: tuple, routes, mm=ref.plain_mm, **routing):
+    """The reference's logits over one checked request (``seq``: the
+    arguments of ``decode_logits`` up to the shape), routed by ``routes``
+    where the family routes tokens to experts."""
+    kw = {} if routes is None else dict(routing, routes=routes)
+    return ref.decode_logits(*seq, mm=mm, **kw)
+
+
 def reference_gaps(cell, seed: int, device, closed: dict, bank, offsets,
-                   mm_names=("plain",)) -> dict:
-    """For each product in ``mm_names`` (``plain``: the reference,
-    ``fp8``: the control), the widest gap over the checked requests by
-    which a token lies below the float32 reference's best logit: the
-    program's served token for ``plain``, the control's first choice at
-    the same position for ``fp8``.  Under ``untied`` the same over each
-    request's tokens before the first that the reference routes by a tie
-    (``ties`` of the family's ``decode_logits``; a family that routes
-    nothing has none): from there on, the program may rightly have routed
-    otherwise, and its cache rows then differ too."""
+                   modes=("program",)) -> dict:
+    """The float32 reference's readings over the checked requests, for
+    each of ``modes``: ``program``, the program's served tokens; ``control``,
+    the tokens the float8 control puts first at each position of the same
+    prompts and served tokens; ``wrong_route``, the program's tokens with
+    :func:`wrong_route` planted in its routes.
+
+    ``gap``: the widest gap by which such a token's logit lies below the
+    reference's best.  Where the family routes tokens to experts, the
+    reference (and the control) route each token as the program did
+    (``request_routes``), and ``route``: the widest route gap over the
+    tokens and expert layers, how far a choice lies below the float32
+    router's ``top_k``-th logit: the program's choices (planted with the
+    fault under ``wrong_route``), and the control's own, its float8
+    router's ``top_k`` over its own residual stream; ``moved``: the
+    layer-token pairs whose choices the program made otherwise than the
+    reference."""
     ref.no_tf32()
     s = cell.shape
+    routed = bool(cell_lib.route_layers(s))
     params = weights.make_params(s, seed, torch.bfloat16, device)
     bk, bv = bank
     layers = range(len(bk))
-    gaps = {name: 0.0 for name in mm_names}
-    untied = dict(gaps)
-    n_tokens = n_untied = 0
+    gaps = {m: 0.0 for m in modes}
+    route = dict(gaps)
+    n_tokens = moved = 0
     for rid, out in sample(closed["finished"], seed,
                            cell.traffic["check"]["requests"]):
         slot, r = closed["slot_of"][rid]
         start = r["start"]
         at = torch.arange(start, device=device) + int(offsets[slot])
-        ctx_k = [bk[i][at % bk[i].shape[0]] for i in layers]
-        ctx_v = [bv[i][at % bv[i].shape[0]] for i in layers]
+        ctx = ([bk[i][at % bk[i].shape[0]] for i in layers],
+               [bv[i][at % bv[i].shape[0]] for i in layers])
         tokens = torch.tensor([r["last_token"]] + out[:-1], device=device)
         served = torch.tensor(out, device=device)
-        ties: list = []
+        seq = (params, tokens, start, *ctx, s)
+        routes = request_routes(closed, rid, slot, len(out)) \
+            if routed else None
+        rg: dict = {m: [] for m in modes}
         with torch.no_grad():
-            logits = ref.decode_logits(params, tokens, start, ctx_k, ctx_v,
-                                       s, ties=ties)
-            chosen = {"plain": served}
-            if "fp8" in gaps:
-                chosen["fp8"] = ref.decode_logits(
-                    params, tokens, start, ctx_k, ctx_v, s,
-                    mm=ref.fp8_mm).argmax(dim=-1)
-        cut = min(ties, default=len(out))
-        for name in gaps:
-            gaps[name] = max(gaps[name], ref.widest_gap(logits, chosen[name]))
-            if cut:
-                untied[name] = max(untied[name], ref.widest_gap(
-                    logits[:cut], chosen[name][:cut]))
+            logits = _logits(seq, routes, route_gaps=rg["program"])
+            judged = {"program": (logits, served)}
+            if "control" in modes:
+                judged["control"] = (logits, _logits(
+                    seq, routes, mm=ref.fp8_mm, route_gaps=rg["control"],
+                    own_route_gap=True).argmax(dim=-1))
+            if "wrong_route" in modes:
+                judged["wrong_route"] = (_logits(
+                    seq, routes, route_gaps=rg["wrong_route"],
+                    reroute=wrong_route), served)
+        for m, (want, chosen) in judged.items():
+            gaps[m] = max(gaps[m], ref.widest_gap(want, chosen))
+            if rg[m]:
+                route[m] = max(route[m], float(torch.stack(rg[m]).max()))
+        if routed:
+            moved += int((torch.stack(rg["program"]) > 0).sum())
         n_tokens += len(out)
-        n_untied += cut
-    gaps.update(tokens=n_tokens, untied=untied, tokens_untied=n_untied)
-    return gaps
+    readings = {"gap": gaps, "tokens": n_tokens}
+    if routed:
+        readings.update(route=route, moved=moved)
+    return readings

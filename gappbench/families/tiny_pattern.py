@@ -130,6 +130,12 @@ def cache_layers(s: Shape, cache_len: int) -> list[CacheLayer]:
     return out
 
 
+def route_layers(s: Shape) -> list[tuple[int, str]]:
+    """Every ``moe`` block, as ``cache_layers`` places it."""
+    return [(c.group, c.block) for c, (_, kind) in
+            zip(cache_layers(s, 1), s.blocks()) if kind == "moe"]
+
+
 def make_bank(s: Shape, seed: int, rows: int, device) -> tuple:
     from gappbench.weights import bank_for
     return bank_for(cache_layers(s, rows), s.kv_heads, s.head_dim, seed,

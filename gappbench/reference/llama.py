@@ -97,12 +97,11 @@ def lm_loss(params, tokens, frontend, s, mm=plain_mm,
 
 
 def decode_logits(params, tokens, start: int, ctx_k, ctx_v, s,
-                  mm=plain_mm, ties=None):
+                  mm=plain_mm):
     """Logits (n, V) at positions start .. start+n-1 of one sequence whose
     tokens there are ``tokens`` (n,), over prompt rows ``ctx_k[l]``,
     ``ctx_v[l]`` (start, KV, hd) of each layer: a prefill of the new
-    tokens against the prompt's cache.  The family routes nothing, so
-    ``ties`` gets no index."""
+    tokens against the prompt's cache."""
     x = f32(params["embed"])[tokens.long()][None]
     pos = start + torch.arange(tokens.shape[0], device=x.device,
                                dtype=torch.float32)

@@ -35,13 +35,14 @@ def lm_loss(params, tokens, frontend, s, mm=plain_mm, remat: bool = True,
 
 
 def decode_logits(params, tokens, start: int, ctx_k, ctx_v, s, mm=plain_mm,
-                  ties=None):
+                  **routing):
     """Logits (n, V) at positions start .. start+n-1 of one sequence whose
     tokens there are ``tokens`` (n,), over the prompt's rows ``ctx_k[i]``,
     ``ctx_v[i]`` (start, KV, hd) at positions 0 .. start-1 of each cache
     layer ``i``: a prefill of the new tokens against the prompt's cache.
-    ``ties``: a list that gets the index of every token the family's
-    reference routes by a margin too small for the program's precision to
-    keep (none where the family routes nothing)."""
+    ``routing`` (``routes``, ``route_gaps``, ``reroute``,
+    ``own_route_gap``), for a family whose layers route tokens to experts:
+    route as the program did (see
+    ``reference/tiny_pattern.py::decode_logits``)."""
     return family_reference(s).decode_logits(params, tokens, start, ctx_k,
-                                             ctx_v, s, mm=mm, ties=ties)
+                                             ctx_v, s, mm=mm, **routing)

@@ -10,7 +10,10 @@ expert's SwiGLU weighted by its probability, and no token dropped.  Each
 expert is computed here over every token and weighed 0 where it was not
 chosen.  The router's auxiliary loss (``aux_weight * E * sum(first
 choices' share * mean probability)`` a layer) is added to the training
-objective.  It imports nothing of the port.
+objective.  In decode the reference can route as the program did instead
+(``decode_logits(..., routes=...)``): the program's choices, weighted by
+the reference's own probabilities, and beside them how far each choice
+lies from one the reference would make.  It imports nothing of the port.
 """
 from __future__ import annotations
 
@@ -19,13 +22,6 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from gappbench.reference.common import f32, plain_mm, rms_norm, rope
-
-#: router logits closer than this may swap their order where the program
-#: routes from bf16 activations; a token routed by a smaller margin, and
-#: every token after it, are left out of the decode check's
-#: ``logit_gap_untied``
-ROUTING_TIE = 0.1
-
 
 def attention(p, h, pos, s, mm, window=None, ctx=None):
     """Causal attention of h (B, S, D) at positions ``pos`` (S,), each
@@ -65,15 +61,33 @@ def mlp(p, h, mm, names=("gate", "up", "down"), expert=None):
     return mm(F.silu(mm(h, w[0])) * mm(h, w[1]), w[2])
 
 
-def experts(p, h, s, mm):
+def experts(p, h, s, mm, route=None, reroute=None, own_gap=False):
     """The expert FFN of h (B, S, D): its output, the router's auxiliary
-    loss, and each token's routing margin (B, S): how far its last chosen
-    expert's router logit lies above the best of the others."""
+    loss, and the route gap (B, S) where ``route`` is given.  ``route``
+    (B, S, top_k): the experts to run in place of the reference's own top
+    ``top_k``, each weighted by the reference's probability, renormalised
+    over them; the route gap is how far the lowest of their float32 router
+    logits lies below the float32 router's ``top_k``-th best (0 where the
+    two sets agree).  ``reroute(logits, route)`` replaces ``route`` first,
+    from the router's logits (B, S, E): a fault planted in the routes.
+    ``own_gap``: the route gap reads the ``top_k`` that ``mm``'s own
+    router logits would choose here, in place of ``route``'s (a lower
+    precision's choices, while the experts run are still ``route``'s)."""
     logits = mm(h, f32(p["router"]))                         # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
-    ranked = torch.topk(logits, s.top_k + 1, dim=-1).values
-    margin = ranked[..., -2] - ranked[..., -1]
-    top_p, top_e = torch.topk(probs, s.top_k, dim=-1)
+    gap = None
+    if route is None:
+        top_p, top_e = torch.topk(probs, s.top_k, dim=-1)
+    else:
+        top_e = route.long()
+        if reroute is not None:
+            top_e = reroute(logits, top_e)
+        top_p = probs.gather(-1, top_e)
+        exact = plain_mm(h, f32(p["router"]))
+        read = torch.topk(logits, s.top_k, dim=-1).indices if own_gap \
+            else top_e
+        kth = torch.topk(exact, s.top_k, dim=-1).values[..., -1]
+        gap = kth - exact.gather(-1, read).min(dim=-1).values
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     gate = torch.zeros_like(probs).scatter(-1, top_e, top_p)
     out = 0.0
@@ -83,19 +97,21 @@ def experts(p, h, s, mm):
     first = F.one_hot(top_e[..., 0], s.experts).float().mean(dim=(0, 1))
     aux = s.aux_weight * s.experts * torch.sum(first
                                                * probs.mean(dim=(0, 1)))
-    return out, aux, margin
+    return out, aux, gap
 
 
-def block(p, x, pos, s, mm, kind: str, ctx=None):
-    """One block: ``(x, aux, margin)`` (``margin`` None in a block that
-    routes nothing)."""
+def block(p, x, pos, s, mm, kind: str, ctx=None, route=None,
+          reroute=None, own_gap=False):
+    """One block: ``(x, aux, gap)``: ``gap`` the route gap of
+    :func:`experts` where ``route`` is given (None otherwise, and in a
+    block that routes nothing)."""
     window = s.window if kind == "local" else None
     x = x + attention(p["attn"], rms_norm(x, f32(p["ln1"]), s.eps), pos, s,
                       mm, window, ctx)
     h = rms_norm(x, f32(p["ln2"]), s.eps)
     if kind == "moe":
-        f, aux, margin = experts(p["ffn"], h, s, mm)
-        return x + f, aux, margin
+        f, aux, gap = experts(p["ffn"], h, s, mm, route, reroute, own_gap)
+        return x + f, aux, gap
     return x + mlp(p["ffn"], h, mm), x.new_zeros(()), None
 
 
@@ -131,20 +147,31 @@ def lm_loss(params, tokens, frontend, s, mm=plain_mm, remat: bool = True,
 
 
 def decode_logits(params, tokens, start: int, ctx_k, ctx_v, s, mm=plain_mm,
-                  ties=None):
+                  routes=None, route_gaps=None, reroute=None,
+                  own_route_gap=False):
     """Logits (n, V) at positions start .. start+n-1 of one sequence whose
     tokens there are ``tokens`` (n,), over each attention layer's prompt
     rows ``ctx_k[i]``, ``ctx_v[i]`` at positions 0 .. start-1 (a local
-    layer's band leaves out all but its window's).  ``ties``: a list that
-    gets the index of every token some expert layer routes by a margin
-    under :data:`ROUTING_TIE`."""
+    layer's band leaves out all but its window's).
+
+    ``routes`` (n, expert layers, top_k): each token's experts in each
+    expert layer, in the order the layers run, to route by in place of the
+    reference's own choice (:func:`experts`); ``route_gaps``, a list, then
+    gets each expert layer's route gaps (n,).  ``reroute``, and
+    ``own_route_gap`` (``own_gap``): see :func:`experts`."""
     x = f32(params["embed"])[tokens.long()][None]
     pos = start + torch.arange(tokens.shape[0], device=x.device,
                                dtype=torch.float32)
+    j = 0
     for i, (p, kind) in enumerate(_blocks(params, s)):
         ctx = (ctx_k[i][None].float(), ctx_v[i][None].float())
-        x, _, margin = block(p, x, pos, s, mm, kind, ctx)
-        if ties is not None and margin is not None:
-            ties += torch.nonzero(margin[0] < ROUTING_TIE)[:, 0].tolist()
+        route = None
+        if routes is not None and kind == "moe":
+            route = routes[None, :, j]
+            j += 1
+        x, _, gap = block(p, x, pos, s, mm, kind, ctx, route, reroute,
+                          own_route_gap)
+        if gap is not None and route_gaps is not None:
+            route_gaps.append(gap[0])
     x = rms_norm(x[0], f32(params["final_norm"]), s.eps)
     return mm(x, f32(params["lm_head"]))

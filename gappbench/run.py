@@ -80,17 +80,21 @@ def _free(device) -> None:
 
 
 def check_decode(cell, seed, device, closed, keep, controls) -> tuple:
+    """``logit_gap``; where the family routes tokens to experts,
+    ``logit_gap_routed`` and ``route_gap`` instead, the reference routed as
+    the program did (``decode.reference_gaps``)."""
     from gappbench import decode
     bank, offsets = keep
-    names = ("plain", "fp8") if "control" in controls else ("plain",)
+    modes = ("program",) + tuple(m for m in ("control", "wrong_route")
+                                 if m in controls)
     g = decode.reference_gaps(cell, seed, device, closed, bank, offsets,
-                              mm_names=names)
-    nums = {mode: {"logit_gap": g[name],
-                   "logit_gap_untied": g["untied"][name]}
-            for mode, name in (("program", "plain"), ("control", "fp8"))
-            if name in names}
-    return nums, {"tokens_checked": g["tokens"],
-                  "tokens_untied": g["tokens_untied"]}
+                              modes)
+    if "route" not in g:
+        return ({m: {"logit_gap": g["gap"][m]} for m in modes},
+                {"tokens_checked": g["tokens"]})
+    return ({m: {"logit_gap_routed": g["gap"][m],
+                 "route_gap": g["route"][m]} for m in modes},
+            {"tokens_checked": g["tokens"], "routes_differing": g["moved"]})
 
 
 def check_train(cell, seed, device, closed, controls) -> tuple:
@@ -139,10 +143,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     """One run; returns the result's object, the lines for standard error
     (the compared numbers beside their limits last) and the record the
     readers read.  Each of ``controls`` (``control``, ``half_batch``,
-    ``drop_critical``, ``permute_tags``; see ``control.py``) is put in the
-    program's place after the window and held to the same limits: the
-    result then also gives, under ``controls``, each one's readings and
-    whether it came out correct."""
+    ``wrong_route``, ``drop_critical``, ``permute_tags``; see
+    ``control.py``) is put in the program's place after the window and
+    held to the same limits: the result then also gives, under
+    ``controls``, each one's readings and whether it came out correct."""
     import torch
     from gappbench import decode, train
     from gappbench import devtrace as trace_lib
@@ -154,13 +158,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     entry = cell.traffic["entry"]
     marks = {}
     if entry == "decode":
-        live = decode.setup(cell, seed, device)
-        marks["setup"] = time.perf_counter()
-        tracing.open()
-        rec = decode.window(live, seconds, tracing.mark)
-        tracing.close()
-        keep = (live.bank, live.offsets)
-        closed = decode.close(live)
+        with decode.route_tap(cell) as tap:
+            live = decode.setup(cell, seed, device, tap)
+            marks["setup"] = time.perf_counter()
+            tracing.open()
+            rec = decode.window(live, seconds, tracing.mark)
+            tracing.close()
+            keep = (live.bank, live.offsets)
+            closed = decode.close(live)
     elif entry == "train":
         def setup_done():
             marks["setup"] = time.perf_counter()

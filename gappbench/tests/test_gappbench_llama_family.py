@@ -1,9 +1,10 @@
 """The ``llama`` family holds the numbers the harness had before families:
 the leaf specs, the parameters' and the bank's bytes, the yardstick's
-counts, the plain reference's loss, gradients and logits, and every
-reader's value on the stored records, each pinned as it was computed
-before the llama code moved into ``families/llama.py`` and
-``reference/llama.py``."""
+counts, the plain reference's loss, gradients and logits, every reader's
+value on the stored records, and the decode check's readings on a stored
+run's finished requests, each pinned as it was computed before the llama
+code moved into ``families/llama.py`` and ``reference/llama.py`` (the
+check's, before the routed check of expert families came in)."""
 import hashlib
 import json
 import pathlib
@@ -17,7 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from gappbench import cell as cell_lib  # noqa: E402
-from gappbench import run, weights, yardstick  # noqa: E402
+from gappbench import control, run, weights, yardstick  # noqa: E402
 from gappbench.reference import model as ref  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -180,6 +181,27 @@ def test_reference_decode_logits_are_the_parents(one_thread):
         -0.48102959990501404, -0.4022082984447479, 0.13273648917675018,
         -0.3176441788673401]
     assert ref.widest_gap(a, b.argmax(-1)) == 0.062293052673339844
+
+
+def test_the_decode_check_reads_the_parents_numbers(one_thread):
+    # a tiny run's finished requests, slots and offsets, stored; the llama
+    # family routes nothing, so its check keeps its path: logit_gap alone
+    rec = json.loads((DATA / "decode-check-tiny.closed.json").read_text())
+    c = cell_lib.load("tiny-decode-gapp")
+    assert cell_lib.route_layers(c.shape) == []
+    assert control.controls_for(c) == ("control", "drop_critical",
+                                       "permute_tags")
+    closed = {"finished": [tuple(x) for x in rec["finished"]],
+              "slot_of": {int(k): tuple(v)
+                          for k, v in rec["slot_of"].items()}}
+    bank = weights.make_bank(c.shape, rec["seed"], c.traffic["cache_len"],
+                             CPU)
+    nums, info = run.check_decode(c, rec["seed"], CPU, closed,
+                                  (bank, np.array(rec["offsets"])),
+                                  ("control",))
+    assert nums == {"program": {"logit_gap": 0.015570878982543945},
+                    "control": {"logit_gap": 0.5212050676345825}}
+    assert info == {"tokens_checked": 51}
 
 
 # each reader's value on the stored records (traced), as read before
